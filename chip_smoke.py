@@ -7,19 +7,30 @@ toolkit (nvcc).  It imports nothing of JAX or of the reference package.
 Phases, any failure of which exits non-zero:
 
   1. card       name and power limit (nvidia-smi), torch's device name
-  2. build      the four kernels from src/repro_torch/csrc, ptxas -v lines
+  2. build      the eight kernels' five sources from src/repro_torch/csrc,
+                ptxas -v lines
   3. kernels    each CUDA kernel against its plain PyTorch version on the
-                same CUDA tensors, at C=2048 with S in {1,2,4} x W in
-                {32,128,255}, and C=32768: integer outputs, exactly equal
-  4. golden     the 7 raw golden inputs compress to their .gplz bytes; the
-                7 current and 7 version-1 raw blobs decode to their inputs
-  5. main path  the host API (compress / decompress, compress_many /
-                decompress_many) at real sizes, launch counts read around
-                it; round trips exact and containers equal to the plain
-                PyTorch path run on the card
-  6. times      host-clock throughput of the main path, CUDA-event times of
-                each kernel, its plain version and (Kernel II) torch.cumsum
-                at the main path's shapes, and each kernel's bound
+                same CUDA tensors, exactly equal (integer outputs): the
+                LZSS kernels at C=2048 with S in {1,2,4} x W in
+                {32,128,255}, and C=32768; the byte histogram over
+                unaligned ranges of a 37 MB container; the gap decoder on
+                a skewed code, a stored-escape code and partial last
+                sub-blocks; bitshuffle / unshuffle of 1 and 65,536 blocks
+  4. golden     the 12 golden inputs (7 raw, 3 deflate-full, 2 lossy-fz)
+                compress to their .gplz bytes; the 12 current and 7
+                version-1 blobs decode (lossy ones within their bound)
+  5. main path  the host API at real sizes, in two paths, each with the
+                launch counts set to 0 before it and read after it: the
+                raw LZSS codec (PR 11's path) and the two container
+                formats (deflate-full, lossy-fz at eb=1e-3 with a
+                deflate-full inner stage and at eb=0, and a compress_many
+                batch); round trips exact or within eb, and containers
+                equal to the plain PyTorch path run on the card
+  6. times      host-clock throughput of the main path, a stage breakdown
+                of one raw and one lossy-fz round trip, CUDA-event times of
+                each kernel, its plain version and, where one exists, the
+                PyTorch call computing the same function, at the main
+                path's shapes, and each kernel's bound
 
 The last two lines of standard output are the kernels' JSON record and the
 device record {"ok": true, "device": {...}}.
@@ -83,7 +94,8 @@ def main() -> None:
     # ------------------------------------------------------------ build
     t0 = time.perf_counter()
     _build.build_all()
-    print(f"[build] {len(_build.SOURCES)} sources in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {len(_build.SOURCES)} sources for {len(ops.KERNELS)} kernels in "
+          f"{time.perf_counter() - t0:.1f} s")
     for name, lines in _build.ptxas_report().items():
         for ln in lines:
             print(f"[build] {name}: {ln}")
@@ -138,35 +150,54 @@ def main() -> None:
             hold(s, w, 2048, 256)
     for s, w in ((4, 128), (2, 255), (1, 32)):
         hold(s, w, 32768, 8)
-    torch.cuda.synchronize()
-    if any(err.values()):
-        fail(f"a kernel disagrees with its plain version: {err}")
-
-    # ----------------------------------------------------------- golden
-    gdir = ROOT / "tests" / "golden"
-    raw_cases = sorted(p.name[:-10] for p in gdir.glob("*.input.bin")
-                       if re.fullmatch(r"[a-z0-9]+_s\d_w\d+_c\d+", p.name[:-10]))
-    if len(raw_cases) != 7:
-        fail(f"expected 7 raw golden cases, found {raw_cases}")
-    for name in raw_cases:
-        s, w, c = map(int, re.fullmatch(r"\w+?_s(\d)_w(\d+)_c(\d+)", name).groups())
-        data = np.frombuffer((gdir / f"{name}.input.bin").read_bytes(), np.uint8)
-        gold = (gdir / f"{name}.gplz").read_bytes()
-        got = core.compress(data, core.LZSSConfig(symbol_size=s, window=w, chunk_symbols=c))
-        if bytes(got.data) != gold:
-            fail(f"golden {name}: container bytes differ")
-        for blob in (gold, (gdir / "v1" / f"{name}.gplz").read_bytes()):
-            if not np.array_equal(core.decompress(blob), data):
-                fail(f"golden {name}: decoded bytes differ")
-    print(f"[golden] {len(raw_cases)} containers byte-identical, {2 * len(raw_cases)} blobs decoded")
-
-    # -------------------------------------------------------- main path
     runs = [
         ("hurr-quant", 128 * MIB, core.LZSSConfig()),
         ("rtm-float32", 64 * MIB, core.LZSSConfig(symbol_size=4)),
         ("tpch-string", 64 * MIB, core.LZSSConfig(symbol_size=1)),
     ]
     inputs = {name: datasets.load(name, n) for name, n, _ in runs}
+    inputs["hurr-field"] = datasets.load("hurr-field", 128 * MIB)
+    stage_in = hold_container_kernels(inputs["hurr-quant"], err)
+    torch.cuda.synchronize()
+    if any(err.values()):
+        fail(f"a kernel disagrees with its plain version: {err}")
+
+    # ----------------------------------------------------------- golden
+    gdir = ROOT / "tests" / "golden"
+    cases = sorted(p.name[:-10] for p in gdir.glob("*.input.bin"))
+    if len(cases) != 12:
+        fail(f"expected 12 golden cases, found {cases}")
+    n_blobs = 0
+    for name in cases:
+        m = re.fullmatch(r"\w+?_s(\d)_w(\d+)_c(\d+)(_deflate|_lossy|_lossy_eb0)?", name)
+        s, w, c = map(int, m.groups()[:3])
+        suffix = m.group(4) or ""
+        eb = {"_lossy": 1e-3, "_lossy_eb0": 0.0}.get(suffix)
+        kw = dict(symbol_size=s, window=w, chunk_symbols=c)
+        if suffix == "_deflate":
+            kw["backend"] = "deflate-full"
+        elif eb is not None:
+            kw.update(backend="lossy-fz", lossy_eb=eb)
+        data = np.frombuffer((gdir / f"{name}.input.bin").read_bytes(), np.uint8)
+        gold = (gdir / f"{name}.gplz").read_bytes()
+        if bytes(core.compress(data, core.LZSSConfig(**kw)).data) != gold:
+            fail(f"golden {name}: container bytes differ")
+        blobs = [gold]
+        if not suffix:
+            blobs.append((gdir / "v1" / f"{name}.gplz").read_bytes())
+        for blob in blobs:
+            out = core.decompress(blob)
+            if eb:
+                bad = lossy_error(data, out, eb)
+                if bad:
+                    fail(f"golden {name}: {bad}")
+            elif not np.array_equal(out, data):
+                fail(f"golden {name}: decoded bytes differ")
+            n_blobs += 1
+    print(f"[golden] {len(cases)} containers byte-identical, {n_blobs} blobs decoded "
+          f"(lossy within eb, eb=0 bit-exact)")
+
+    # -------------------------------------------------------- main path
     batch = [inputs["hurr-quant"][i * 8 * MIB : (i + 1) * 8 * MIB] for i in range(8)]
     # warm-up: the first host-API call pays allocator and module set-up
     core.decompress(core.compress(batch[0][: MIB]).data)
@@ -192,9 +223,9 @@ def main() -> None:
     torch.cuda.synchronize()
     times["batch 8 x 8 MiB hurr-quant"] = (t1 - t0, time.perf_counter() - t1)
     launches = ops.launch_counts()
-    print(f"[main] launches on the main path: {launches}")
-    if any(v < 1 for v in launches.values()):
-        fail(f"a kernel was not launched on the main path: {launches}")
+    print(f"[main] launches on the raw LZSS path: {launches}")
+    if any(launches[k] < 1 for k in LZSS_KERNELS):
+        fail(f"a kernel was not launched on the raw LZSS path: {launches}")
 
     for name, n, cfg in runs:
         res, back = results[name]
@@ -214,8 +245,11 @@ def main() -> None:
     if not all(np.array_equal(a, b) for a, b in zip(many_back, batch)):
         fail("batch: round trip is not exact")
     print(f"[main] batch 8 x 8 MiB: ratio {many.ratio!r}, exact, equal to the plain path")
+    ctimes, claunches = container_main_path(inputs)
+    times.update(ctimes)
+    launches = {k: launches[k] + claunches[k] for k in ops.KERNELS}
     for name, (tc, td) in times.items():
-        n = sum(b.size for b in batch) if name.startswith("batch") else inputs[name].size
+        n = sum(b.size for b in batch) if name.startswith("batch") else inputs[name.split()[0]].size
         print(f"[time] {card} | {name}: compress {tc * 1e3:.1f} ms ({n / tc / 1e9:.3f} GB/s), "
               f"decompress {td * 1e3:.1f} ms ({n / td / 1e9:.3f} GB/s), host clock, "
               f"host API incl. copies")
@@ -250,6 +284,7 @@ def main() -> None:
         fail("stage breakdown: round trip is not exact")
     for label, t in stages.items():
         print(f"[time] {card} | stage {label}: {t:.3f} ms, hurr-quant 128 MiB")
+    lossy_stage_breakdown(inputs["hurr-field"], card)
 
     # ------------------------------------------------- per-kernel times
     cfg = core.LZSSConfig()
@@ -307,6 +342,7 @@ def main() -> None:
             library=None, bytes=flag_total + pay_total + 4 * nc + 4 * pos, ops=pos,
             source="src/repro_torch/csrc/lz_decode.cu",
             replaces="src/repro/kernels/lz_decode.py:122"),
+        **container_kernel_spec(stage_in),
     }
     record = []
     for name, k in spec.items():
@@ -315,14 +351,15 @@ def main() -> None:
         row = dict(
             name=name, route="cuda", source=k["source"], replaces=k["replaces"],
             launches=launches[name], max_abs_err=err[name],
-            ms=ms(k["kernel"], 10), plain_ms=ms(k["plain"], 2),
+            ms=ms(k["kernel"], 10), plain_ms=ms(k["plain"], k.get("plain_reps", 2)),
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=ms(k["library"], 10) if k["library"] else None,
         )
         record.append(row)
-        print(f"[time] {card} | {name}: {row['ms']:.4f} ms kernel, {row['plain_ms']:.4f} ms plain, "
-              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
-              f"({k['bytes']} bytes, {k['ops']} int32 ops), at nc={nc} C={c} S={s} W={w}")
+        lib = "" if row["library_ms"] is None else f", {row['library_ms']:.4f} ms library"
+        print(f"[time] {card} | {name}: {row['ms']:.4f} ms kernel, {row['plain_ms']:.4f} ms plain"
+              f"{lib}, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"({k['bytes']} bytes, {k['ops']} int32 ops), at {k.get('at', f'nc={nc} C={c} S={s} W={w}')}")
     # Kernel I's cost depends on the data: the far-to-near walk stops at
     # the first offset whose cap the best length reaches.  All-equal
     # symbols stop at once; two-symbol noise visits every offset.
@@ -340,6 +377,368 @@ def main() -> None:
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+LZSS_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode")
+SUB = 512  # gap-array sub-block: decoded bytes per entry point
+
+
+def max_diff(a, b) -> int:
+    import torch
+
+    if a.shape != b.shape:
+        fail(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
+    if not a.numel():
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def lossy_error(data, out, eb: float):
+    """None if ``out`` reconstructs the f32 bytes ``data`` as the lossy-fz
+    format promises (finite elements within eb, the others bit-exact, all
+    bit-exact at eb=0), else what is wrong."""
+    import numpy as np
+
+    x, y = data.view(np.float32), out.view(np.float32)
+    if x.shape != y.shape:
+        return f"decoded {y.size} elements for {x.size}"
+    fin = np.isfinite(x)
+    if eb == 0.0 or not fin.all():
+        keep = np.ones_like(fin) if eb == 0.0 else ~fin
+        if not np.array_equal(x[keep].view(np.uint32), y[keep].view(np.uint32)):
+            return "elements that must be bit-exact differ"
+    if eb and fin.any():
+        err = float(np.abs(y[fin] - x[fin]).max())
+        if not err <= np.float32(eb):
+            return f"max |x' - x| = {err!r} exceeds eb = {eb}"
+    return None
+
+
+def hold_container_kernels(hurr_quant, err) -> dict:
+    """Phase 3 for the container-stage kernels: each CUDA kernel against its
+    plain version on the same CUDA tensors.  Returns the main-path-shaped
+    inputs the timing phase uses."""
+    import torch
+
+    from repro_torch import core
+    from repro_torch.core import entropy, format as fmt, pipeline as pl
+    from repro_torch.kernels import lz_bitshuffle, lz_entropy
+
+    dev = torch.device("cuda")
+    cfg = core.LZSSConfig()
+    raw = torch.from_numpy(hurr_quant).to(dev)
+    sym = pl.pack_symbols(raw, cfg.symbol_size).reshape(-1, cfg.chunk_symbols)
+    buf, total = pl.compress_chunks(sym, cfg, raw.numel())
+    buf = buf[:total].contiguous()  # the raw container of 128 MiB of hurr-quant
+    head = fmt.parse_header(buf[: fmt.HEADER_BYTES].cpu().numpy())
+    sec = fmt.HEADER_BYTES + 8 * head.n_chunks
+    f_tot, p_tot = head.flag_bytes, head.payload_bytes
+    n = buf.numel()
+    for start, length in ((0, n), (3, n - 10), (sec, f_tot), (sec + f_tot, p_tot),
+                          (12345, 1), (7, 0)):
+        got = lz_entropy.byte_histogram_cuda(buf, start, length)
+        lib = torch.bincount(buf[start : start + length], minlength=256)
+        err["byte_histogram"] = max(
+            err["byte_histogram"], max_diff(got, lz_entropy.byte_histogram_plain(buf, start, length)),
+            max_diff(got, lib),
+        )
+    print(f"[kernels] byte_histogram over 6 ranges of a {n}-byte container: "
+          f"max |kernel - plain| {err['byte_histogram']}")
+
+    def gap_case(section, label):
+        k = section.numel()
+        counts = lz_entropy.byte_histogram_cuda(section, 0, k).cpu().numpy()
+        lengths = entropy.container_code_lengths(counts)
+        stream, nbits, gaps = entropy.encode_section(section, 0, k, lengths, cap=k)
+        tabs = entropy.canonical_tables(lengths, dev)
+        nsub = -(-k // SUB)
+        g = gaps[:nsub]
+        args = (stream[: (nbits + 7) // 8].contiguous(), g >> 3, (g & 7).to(torch.int32),
+                tabs["first"], tabs["count"], tabs["base"], tabs["order"])
+        got = lz_entropy.huffman_gap_decode_cuda(*args, sub=SUB)
+        e = max_diff(got, lz_entropy.huffman_gap_decode_plain(*args, sub=SUB))
+        err["huffman_gap_decode"] = max(err["huffman_gap_decode"], e)
+        if not torch.equal(got.reshape(-1)[:k], section):
+            fail(f"gap decode of the {label} section does not invert its encode")
+        print(f"[kernels] huffman_gap_decode, {label}: {k} bytes, {nsub} sub-blocks "
+              f"(last holds {k - (nsub - 1) * SUB}), {nbits} bits, max lengths "
+              f"{int(lengths.max())}: max |kernel - plain| {e}")
+        return args, nbits
+
+    payload = buf[sec + f_tot : sec + f_tot + p_tot]
+    gap_main = gap_case(payload, "container payload (skewed code)")
+    gap_case(buf[sec : sec + f_tot], "container flags (skewed code)")
+    flat = torch.arange(256, device=dev, dtype=torch.int32).repeat(4096 + 1)[: (1 << 20) + 37]
+    gap_case(flat.to(torch.uint8), "flat histogram (stored escape)")
+    gap_case(torch.full((5000,), 9, dtype=torch.uint8, device=dev), "one symbol")
+
+    gen = torch.Generator(dev).manual_seed(0)
+    for nb in (1, 65536):
+        units = torch.randint(-(1 << 15), 1 << 15, (nb * 512,), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.int16)
+        shuffled = lz_bitshuffle.bitshuffle_cuda(units)
+        err["bitshuffle"] = max(err["bitshuffle"],
+                                max_diff(shuffled, lz_bitshuffle.bitshuffle_plain(units)))
+        back = lz_bitshuffle.bitunshuffle_cuda(shuffled)
+        err["bitunshuffle"] = max(err["bitunshuffle"],
+                                  max_diff(back, lz_bitshuffle.bitunshuffle_plain(shuffled)))
+        if not torch.equal(back, units):
+            fail(f"bitunshuffle does not invert bitshuffle at {nb} blocks")
+    print(f"[kernels] bitshuffle / bitunshuffle at 1 and 65536 blocks: max |kernel - plain| "
+          f"{err['bitshuffle']} / {err['bitunshuffle']}")
+    return dict(hist=(buf, sec + f_tot, p_tot), gap=gap_main, units=units, shuffled=shuffled)
+
+
+def _plain_container(data, cfg):
+    """The container of ``data`` by the plain PyTorch path on the card."""
+    import torch
+
+    from repro_torch.core import entropy, lossy, pipeline as pl
+
+    s, c = cfg.symbol_size, cfg.chunk_symbols
+    nsym = -(-max(data.size, 1) // s)
+    nc = -(-nsym // c)
+    padded = torch.zeros(nc * c * s, dtype=torch.uint8, device="cuda")
+    padded[: data.size] = torch.from_numpy(data).cuda()
+    sym = pl.pack_symbols(padded, s).reshape(nc, c)
+    hook = entropy.compress_entropy if cfg.backend == "deflate-full" else lossy.compress_lossy
+    buf, total = hook(sym, cfg, data.size, impl="plain")
+    return buf[:total].cpu().numpy()
+
+
+def container_main_path(inputs):
+    """Phase 5 for the container formats: the host API on deflate-full and
+    lossy-fz at real sizes, launch counts set to 0 before and read after.
+    Returns (host-clock times, launch counts)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import core
+    from repro_torch.kernels import ops
+
+    lossy_cfg = core.LZSSConfig(symbol_size=4, backend="lossy-fz", lossy_eb=1e-3,
+                                lossy_inner="deflate-full")
+    runs = [
+        ("hurr-field lossy-fz eb=1e-3 inner=deflate-full", lossy_cfg, 1e-3),
+        ("hurr-field lossy-fz eb=0", core.LZSSConfig(symbol_size=4, backend="lossy-fz",
+                                                     lossy_eb=0.0), 0.0),
+        ("hurr-quant deflate-full", core.LZSSConfig(backend="deflate-full"), None),
+    ]
+    field = inputs["hurr-field"]
+    batch = [field[i * 8 * MIB : (i + 1) * 8 * MIB] for i in range(8)]
+    for _, cfg, _ in runs:  # warm-up on 1 MiB
+        core.decompress(core.compress(batch[0][:MIB], cfg).data)
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    results, times = {}, {}
+    for label, cfg, _ in runs:
+        data = inputs[label.split()[0]]
+        t0 = time.perf_counter()
+        res = core.compress(data, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        back = core.decompress(res.data)
+        torch.cuda.synchronize()
+        results[label] = (res, back)
+        times[label] = (t1 - t0, time.perf_counter() - t1)
+    t0 = time.perf_counter()
+    many = core.compress_many(batch, lossy_cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    many_back = core.decompress_many(many)
+    torch.cuda.synchronize()
+    blabel = "batch 8 x 8 MiB hurr-field lossy-fz eb=1e-3 inner=deflate-full"
+    times[blabel] = (t1 - t0, time.perf_counter() - t1)
+    launches = ops.launch_counts()
+    print(f"[main] launches on the container path: {launches}")
+    if any(v < 1 for v in launches.values()):
+        fail(f"a kernel was not launched on the container path: {launches}")
+
+    for label, cfg, eb in runs:
+        res, back = results[label]
+        data = inputs[label.split()[0]]
+        bad = lossy_error(data, back, eb) if eb is not None else (
+            None if np.array_equal(back, data) else "round trip is not exact")
+        if bad:
+            fail(f"{label}: {bad}")
+        if not np.array_equal(_plain_container(data, cfg), res.data):
+            fail(f"{label}: the kernels' container differs from the plain path's")
+        print(f"[main] {label}, {data.size // MIB} MiB: ratio {res.ratio!r}, {res.total_bytes} "
+              f"bytes, {'exact' if not eb else 'within eb'}, equal to the plain path")
+    for i, (item, back) in enumerate(zip(batch, many_back)):
+        bad = lossy_error(item, back, 1e-3)
+        if bad:
+            fail(f"batch buffer {i}: {bad}")
+        if not np.array_equal(_plain_container(item, lossy_cfg), many[i].data):
+            fail(f"batch buffer {i}: the kernels' container differs from the plain path's")
+    print(f"[main] {blabel}: ratio {many.ratio!r}, within eb, equal to the plain path")
+    return times, launches
+
+
+def lossy_stage_breakdown(data, card) -> None:
+    """The stages of one 128 MiB lossy-fz round trip (eb=1e-3, deflate-full
+    inner), each on the host clock around a synchronize: the host API's
+    steps driven one by one, and inside the two container hooks the
+    library's stage functions wrapped by timers (the hook's rest is its
+    own arithmetic: quantization and outliers, or dequantization)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import core
+    from repro_torch.core import bitshuffle, deflate, entropy, format as fmt, lossy
+    from repro_torch.core import pipeline as pl
+
+    cfg = core.LZSSConfig(symbol_size=4, backend="lossy-fz", lossy_eb=1e-3,
+                          lossy_inner="deflate-full")
+    dev = torch.device("cuda")
+    stages, saved = {}, []
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[label] = stages.get(label, 0.0) + (time.perf_counter() - t) * 1e3
+        return out
+
+    def timed(owner, attr, label):
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, lambda *a, **k: run(label, lambda: fn(*a, **k)))
+
+    timed(bitshuffle, "shuffle", "  bitshuffle kernel")
+    timed(pl, "lzss_many", "  inner LZSS: Kernels I-III, zeros, header")
+    timed(entropy, "byte_histogram", "  histogram kernel (x2)")
+    timed(entropy, "container_code_lengths", "  host code lengths (x2)")
+    timed(entropy, "encode_section", "  encode sections: cumsum + 3 index_add_ (x2)")
+    timed(entropy, "decode_section", "  gap decode kernel + tables (x2)")
+    timed(deflate, "gather_section", "  section gathers (x2)")
+    timed(pl.FusedDecoder, "decode", "  LZSS decoder kernel")
+    timed(bitshuffle, "unshuffle", "  unshuffle kernel")
+    try:
+        raw = run("h2d input", lambda: torch.from_numpy(data).to(dev))
+        sym = run("pack symbols", lambda: raw.view(torch.int32).reshape(-1, cfg.chunk_symbols))
+        inner_c = ("bitshuffle", "inner LZSS", "histogram", "host code", "encode")
+        buf, total = run("compress_lossy (hook)", lambda: lossy.compress_lossy(sym, cfg, data.size))
+        blob = run("d2h container", lambda: buf[:total].cpu().numpy())
+        h, _, _ = run("validate_container (numpy, inner included)",
+                      lambda: fmt.validate_container(blob))
+        dblob = run("h2d container", lambda: torch.from_numpy(blob).to(dev))
+        sym2 = run("decode_blob_lossy (hook)", lambda: lossy.decode_blob_lossy(dblob, h))
+        out = run("unpack + d2h output", lambda: pl.unpack_symbols(
+            sym2.reshape(-1), 4)[: data.size].cpu().numpy())
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    bad = lossy_error(data, out, 1e-3)
+    if bad:
+        fail(f"lossy stage breakdown: {bad}")
+    inner = {k: v for k, v in stages.items() if k.startswith("  ")}
+    in_compress = sum(v for k, v in inner.items() if k.strip().startswith(inner_c))
+    stages["  rest of the hook: quantization, outliers, assembly"] = (
+        stages["compress_lossy (hook)"] - in_compress)
+    stages["  rest of the hook: header reads, dequantization, chain repair"] = (
+        stages["decode_blob_lossy (hook)"] - (sum(inner.values()) - in_compress))
+    order = ["h2d input", "pack symbols", "compress_lossy (hook)"]
+    order += [k for k in stages if k.startswith("  ") and k.strip().startswith(inner_c)]
+    order += ["  rest of the hook: quantization, outliers, assembly", "d2h container",
+              "validate_container (numpy, inner included)", "h2d container",
+              "decode_blob_lossy (hook)"]
+    order += [k for k in stages if k.startswith("  ") and not k.strip().startswith(inner_c)
+              and "rest" not in k]
+    order += ["  rest of the hook: header reads, dequantization, chain repair",
+              "unpack + d2h output"]
+    for label in order:
+        print(f"[time] {card} | lossy stage {label}: {stages[label]:.3f} ms, hurr-field "
+              f"128 MiB, eb=1e-3, deflate-full inner")
+    ratio = data.size / max(1, total)
+    print(f"[time] {card} | lossy stages: ratio {ratio!r}, max |x' - x| "
+          f"{float(np.abs(out.view(np.float32) - data.view(np.float32)).max())!r}")
+
+    # The chain repair's last-outlier index, in the reference's form (a
+    # cummax over the outlier mask) and the port's (a binary search in the
+    # sorted outlier indices), on this container's outliers, CUDA events.
+    n = h.n_elems
+    oidx = dblob[h.sec_outliers : h.sec_outliers + 8 * h.n_outliers].clone().view(torch.int32)
+    oidx = oidx[0::2].to(torch.int64)
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[oidx] = True
+    k = torch.arange(n, device=dev, dtype=torch.int64)
+
+    def by_cummax():
+        return torch.cummax(torch.where(mask, k, -1), 0).values
+
+    def by_search():
+        marks = torch.sort(oidx).values
+        pos = torch.searchsorted(marks, k, right=True) - 1
+        return torch.where(pos >= 0, marks[pos.clamp(min=0)], -1)
+
+    t = {}
+    for name, fn in (("cummax", by_cummax), ("search", by_search)):
+        fn()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(3):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        t[name] = a.elapsed_time(b) / 3
+    if not torch.equal(by_cummax(), by_search()):
+        fail("the chain repair's binary search differs from the cummax form")
+    print(f"[time] {card} | chain repair, last-outlier index over {n} elements "
+          f"({h.n_outliers} outliers): torch.cummax {t['cummax']:.4f} ms, sort + "
+          f"searchsorted {t['search']:.4f} ms, equal")
+
+
+def container_kernel_spec(stage_in) -> dict:
+    """Phase 6 entries of the four container-stage kernels, at the shapes
+    the main path gives them."""
+    import torch
+
+    from repro_torch.kernels import lz_bitshuffle, lz_entropy
+
+    buf, start, length = stage_in["hist"]
+    gap_args, nbits = stage_in["gap"]
+    nsub = gap_args[1].numel()
+    units, shuffled = stage_in["units"], stage_in["shuffled"]
+    n_units = units.numel()
+    return {
+        "byte_histogram": dict(
+            kernel=lambda: lz_entropy.byte_histogram_cuda(buf, start, length),
+            plain=lambda: lz_entropy.byte_histogram_plain(buf, start, length),
+            library=lambda: torch.bincount(buf[start : start + length], minlength=256),
+            bytes=length + 4 * 256, ops=length,
+            at=f"the {length}-byte payload section of the hurr-quant 128 MiB container",
+            source="src/repro_torch/csrc/lz_entropy.cu",
+            replaces="src/repro/kernels/lz_entropy.py:65"),
+        "huffman_gap_decode": dict(
+            kernel=lambda: lz_entropy.huffman_gap_decode_cuda(*gap_args, sub=SUB),
+            plain=lambda: lz_entropy.huffman_gap_decode_plain(*gap_args, sub=SUB),
+            plain_reps=1, library=None,
+            # the stream, 12 bytes of entry point and 1 byte out per codeword's
+            # sub-block slot; one range test per code length tried (the
+            # stream's bit count) and one order lookup per codeword
+            bytes=(nbits + 7) // 8 + 12 * nsub + 4 * (3 * 16 + 256) + SUB * nsub,
+            ops=nbits + SUB * nsub,
+            at=f"the same payload section: {nsub} sub-blocks, {nbits} bits",
+            source="src/repro_torch/csrc/lz_entropy.cu",
+            replaces="src/repro/kernels/lz_entropy.py:118"),
+        "bitshuffle": dict(
+            kernel=lambda: lz_bitshuffle.bitshuffle_cuda(units),
+            plain=lambda: lz_bitshuffle.bitshuffle_plain(units),
+            library=None, bytes=4 * n_units, ops=16 * n_units,
+            at=f"{n_units} units ({n_units // 512} blocks: 128 MiB of f32 in quant mode)",
+            source="src/repro_torch/csrc/lz_bitshuffle.cu",
+            replaces="src/repro/kernels/lz_bitshuffle.py:32"),
+        "bitunshuffle": dict(
+            kernel=lambda: lz_bitshuffle.bitunshuffle_cuda(shuffled),
+            plain=lambda: lz_bitshuffle.bitunshuffle_plain(shuffled),
+            library=None, bytes=4 * n_units, ops=16 * n_units,
+            at=f"{n_units} units ({n_units // 512} blocks: 128 MiB of f32 in quant mode)",
+            source="src/repro_torch/csrc/lz_bitshuffle.cu",
+            replaces="src/repro/kernels/lz_bitshuffle.py:44"),
+    }
 
 
 def kernel1_compares(sym, window: int, c: int) -> int:

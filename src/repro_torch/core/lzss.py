@@ -6,8 +6,9 @@
 The entry points run on the card: ``device=None`` means ``"cuda"``, and
 without a card they raise rather than carry on on the CPU.  The CPU runs
 only when the caller asks for it with ``device="cpu"``.  Containers are
-format v2, method 0, byte-identical to the reference package's, and the
-two packages read each other's.
+format v2 — method 0 (raw LZSS), 1 (``deflate-full``) or 2 (``lossy-fz``)
+— byte-identical to the reference package's, and the two packages read
+each other's.  ``decompress`` routes on the container's method byte.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from repro_torch.core.pipeline import (  # noqa: F401
     compress_chunks,
     compress_many_chunks,
     config_from_jax,
+    container_method,
     decompress_chunks,
     decompress_many_chunks,
     default_backend,
@@ -42,14 +44,6 @@ from repro_torch.core.pipeline import (  # noqa: F401
     resolve_decoder,
     unpack_symbols,
 )
-
-_NOT_PORTED = {
-    fmt.METHOD_HUFFMAN: "method-1 (deflate-full) containers are not ported yet: "
-    "see ROADMAP.md queue 1 item 7",
-    fmt.METHOD_LOSSY: "method-2 (lossy-fz) containers are not ported yet: "
-    "see ROADMAP.md queue 1 item 8",
-}
-
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; a CUDA device without a card raises."""
@@ -146,28 +140,69 @@ def _validated(blob):
         blob = np.frombuffer(blob, np.uint8)
     blob = np.array(blob, np.uint8)  # a writable copy for torch.from_numpy
     h, n_tokens, payload_sizes = fmt.validate_container(blob)
-    if h.method in _NOT_PORTED:
-        raise ValueError(_NOT_PORTED[h.method])
     return blob, h, n_tokens, payload_sizes
+
+
+def _route(method: int, decoder: str, dev, *, batch: bool = False) -> str:
+    """The decoder key for containers of ``method``: entropy containers
+    decode only through the entropy decoder, lossy ones only through the
+    lossy decoder, raw ones through any raw decoder.  A mismatch is a
+    ``ValueError`` (the reference's messages), never garbage symbols."""
+    what, verb, this = (
+        ("containers", "decode", "this batch") if batch
+        else ("container", "decodes", "this container")
+    )
+    if method == fmt.METHOD_HUFFMAN:
+        if decoder not in ("auto", "deflate-full"):
+            raise ValueError(
+                f"method-1 (entropy) {what}: {verb} only via "
+                f"decoder='deflate-full' (or 'auto'), got {decoder!r}"
+            )
+        return "deflate-full"
+    if method == fmt.METHOD_LOSSY:
+        if decoder not in ("auto", "lossy-fz"):
+            raise ValueError(
+                f"method byte {method} (lossy) {what}: {verb} only "
+                f"via decoder='lossy-fz' (or 'auto'), got {decoder!r}"
+            )
+        return "lossy-fz"
+    dec = resolve_decoder(decoder, dev)
+    if dec == "deflate-full":
+        raise ValueError(
+            "decoder='deflate-full' decodes method-1 (entropy) "
+            f"containers only; {this} is method 0 (raw LZSS)"
+        )
+    if dec == "lossy-fz":
+        raise ValueError(
+            "decoder='lossy-fz' decodes method-2 (lossy) containers "
+            f"only; {this}'s method byte is {method}"
+        )
+    return dec
 
 
 def decompress(blob, decoder: str = "auto", device=None) -> np.ndarray:
     """Decompress a container -> uint8 array of the original bytes.
 
     Raises ``ValueError`` on a truncated or corrupt container (the checks of
-    ``format.validate_container``) before anything is decoded.
+    ``format.validate_container``) before anything is decoded, and on a
+    decoder that does not read the container's method.
     """
     dev = resolve_device(device)
     blob, h, n_tokens, payload_sizes = _validated(blob)
-    symbols = decompress_chunks(
-        torch.from_numpy(blob).to(dev),
-        torch.from_numpy(n_tokens).to(dev),
-        torch.from_numpy(payload_sizes).to(dev),
-        symbol_size=h.symbol_size,
-        chunk_symbols=h.chunk_symbols,
-        n_chunks=h.n_chunks,
-        decoder=resolve_decoder(decoder, dev),
-    )
+    dec = _route(h.method, decoder, dev)
+    whole = getattr(get_decoder(dec, dev), "decode_blob", None)
+    if whole is not None:
+        symbols = whole(torch.from_numpy(blob).to(dev), h)
+    else:
+        symbols = decompress_chunks(
+            torch.from_numpy(blob).to(dev),
+            torch.from_numpy(n_tokens).to(dev),
+            torch.from_numpy(payload_sizes).to(dev),
+            symbol_size=h.symbol_size,
+            chunk_symbols=h.chunk_symbols,
+            n_chunks=h.n_chunks,
+            decoder=dec,
+        )
     out = unpack_symbols(symbols.reshape(-1), h.symbol_size)[: h.orig_bytes]
     return out.cpu().numpy()
 
@@ -205,8 +240,10 @@ def decompress_many(batch, decoder: str = "auto", device=None) -> list:
     """Decompress a batch of containers in one dispatch.
 
     ``batch`` is a ``BatchedCompressResult`` or a list of container blobs,
-    all of one geometry (S, C, n_chunks) — true for anything produced by
-    ``compress_many``.  Returns a list of uint8 arrays.
+    all of one geometry (S, C, n_chunks, method) — true for anything
+    produced by ``compress_many``; a lossy batch also shares its (mode,
+    inner method).  Raw batches decode in one decoder launch; entropy and
+    lossy batches container by container.  Returns a list of uint8 arrays.
     """
     dev = resolve_device(device)
     if isinstance(batch, BatchedCompressResult):
@@ -223,17 +260,37 @@ def decompress_many(batch, decoder: str = "auto", device=None) -> list:
             raise ValueError(f"buffer {i}: {e}") from None
     h0 = checked[0][1]
     for i, (_, h, _, _) in enumerate(checked[1:], start=1):
-        if (h.symbol_size, h.chunk_symbols, h.n_chunks) != (
-            h0.symbol_size, h0.chunk_symbols, h0.n_chunks
+        if (h.symbol_size, h.chunk_symbols, h.n_chunks, h.method) != (
+            h0.symbol_size, h0.chunk_symbols, h0.n_chunks, h0.method
         ):
             raise ValueError(
                 f"decompress_many requires a homogeneous batch geometry; "
                 f"buffer 0 has (symbol_size={h0.symbol_size}, "
-                f"chunk_symbols={h0.chunk_symbols}, n_chunks={h0.n_chunks}) "
+                f"chunk_symbols={h0.chunk_symbols}, n_chunks={h0.n_chunks}, "
+                f"method={h0.method}) "
                 f"but buffer {i} has (symbol_size={h.symbol_size}, "
-                f"chunk_symbols={h.chunk_symbols}, n_chunks={h.n_chunks}); "
+                f"chunk_symbols={h.chunk_symbols}, n_chunks={h.n_chunks}, "
+                f"method={h.method}); "
                 f"decompress mismatched containers individually"
             )
+    if h0.method == fmt.METHOD_LOSSY:
+        sp = get_decoder("lossy-fz", dev).static_params
+        for i, (_, h, _, _) in enumerate(checked[1:], start=1):
+            if sp(h) != sp(h0):
+                raise ValueError(
+                    f"decompress_many requires a homogeneous lossy batch; "
+                    f"buffer 0 has (mode, inner_method)={sp(h0)} "
+                    f"but buffer {i} has {sp(h)}; "
+                    f"decompress mismatched containers individually"
+                )
+    dec = _route(h0.method, decoder, dev, batch=True)
+    whole = getattr(get_decoder(dec, dev), "decode_blob", None)
+    if whole is not None:
+        return [
+            unpack_symbols(whole(torch.from_numpy(b).to(dev), h).reshape(-1), h.symbol_size)
+            [: h.orig_bytes].cpu().numpy()
+            for b, h, _, _ in checked
+        ]
     width = max(c[0].size for c in checked)
     stacked = np.zeros((len(checked), width), np.uint8)
     for i, c in enumerate(checked):
@@ -245,10 +302,11 @@ def decompress_many(batch, decoder: str = "auto", device=None) -> list:
         symbol_size=h0.symbol_size,
         chunk_symbols=h0.chunk_symbols,
         n_chunks=h0.n_chunks,
-        decoder=resolve_decoder(decoder, dev),
+        decoder=dec,
     )
     s = h0.symbol_size
     out = []
     for i, (_, h, _, _) in enumerate(checked):
         out.append(unpack_symbols(symbols[i].reshape(-1), s)[: h.orig_bytes].cpu().numpy())
     return out
+

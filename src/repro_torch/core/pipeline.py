@@ -16,20 +16,35 @@ to symbols through ``decode``.  Registered entries:
                ``torch-scan``     the same with the paper's sequential
                                   selection walk (the oracle)
                ``fused-deflate``  the CUDA Kernel I -> Kernel II -> Kernel III
+               ``deflate-full``   the device's LZSS + canonical Huffman over
+                                  both sections (method-1 containers,
+                                  core/entropy.py)
+               ``lossy-fz``       error-bounded quantization + bitshuffle +
+                                  the ``lossy_inner`` lossless stage
+                                  (method-2 containers, core/lossy.py)
   decoders     ``torch-parallel`` plain PyTorch parallel decoder
                ``torch-scan``     sequential token walk (the oracle)
                ``fused``          plain ``gather_section`` + the CUDA decoder
+               ``deflate-full``   gap-array Huffman decode + the device's
+                                  LZSS decoder (method-1 containers only)
+               ``lossy-fz``       inner decode + unshuffle + dequantization
+                                  (method-2 containers only)
 
 ``"auto"`` resolves by device: the CUDA kernels on ``cuda`` and the plain
 ``torch`` / ``torch-parallel`` entries on ``cpu``.  On CPU tensors the
 kernel wrappers run their plain versions, so the ``fused*`` entries also
-work there.  Every entry produces the same container bytes and symbols,
-and the bytes equal the reference package's method-0 containers.
+work there.  Every raw entry produces the same container bytes and
+symbols, and the bytes equal the reference package's method-0 containers;
+``deflate-full`` and ``lossy-fz`` equal its method-1 and method-2
+containers.  A backend or decoder that owns a whole container defines a
+``compress`` / ``decode_blob`` hook instead of the Kernel-I / section
+seams.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Protocol
 
 import torch
@@ -50,6 +65,11 @@ class LZSSConfig:
     reference package, where it sets the TPU kernels' block geometry; it
     has no effect on the Hopper kernels, which run one chunk per thread
     block.  (C, S) is checked against the kernels' shared-memory need.
+
+    ``lossy_eb`` is the error bound of ``backend="lossy-fz"`` (0.0 selects
+    its bit-exact lossless mode) and ``lossy_inner`` the lossless stage
+    inside a lossy container.  The two container backends pin their own
+    decoders, with the reference's validation and messages.
     """
 
     symbol_size: int = 2  # S in {1, 2, 4}
@@ -58,6 +78,8 @@ class LZSSConfig:
     chunks_per_block: object = None
     backend: str = "auto"
     decoder: str = "auto"
+    lossy_eb: object = None  # error bound for backend="lossy-fz" (0=lossless)
+    lossy_inner: str = "auto"  # lossless stage inside a lossy-fz container
 
     def __post_init__(self):
         if self.symbol_size not in (1, 2, 4):
@@ -87,6 +109,52 @@ class LZSSConfig:
                 f"registered: {available_decoders()} "
                 f"(also accepted: 'auto', {sorted(_DECODER_ALIASES)})"
             )
+        # the entropy pair is a container format: method-1 containers
+        # decode only through their own decoder
+        if self.backend == "deflate-full" and self.decoder == "auto":
+            object.__setattr__(self, "decoder", "deflate-full")
+        if self.decoder == "deflate-full" and self.backend != "deflate-full":
+            raise ValueError(
+                "decoder='deflate-full' decodes method-1 (entropy) containers "
+                "only; pair it with backend='deflate-full'"
+            )
+        if self.backend == "lossy-fz":
+            if self.symbol_size != 4:
+                raise ValueError(
+                    "backend='lossy-fz' quantizes f32 elements: "
+                    f"symbol_size must be 4, got {self.symbol_size}"
+                )
+            eb = self.lossy_eb
+            if eb is None or not isinstance(eb, (int, float)):
+                raise ValueError(
+                    "backend='lossy-fz' requires lossy_eb=<float error "
+                    "bound> (0.0 selects the bit-exact lossless mode)"
+                )
+            if not math.isfinite(eb) or eb < 0:
+                raise ValueError(f"lossy_eb must be a finite bound >= 0: {eb}")
+            object.__setattr__(self, "lossy_eb", float(eb))
+            if self.lossy_inner != "auto" and self.lossy_inner not in _BACKENDS:
+                raise ValueError(
+                    f"unknown backend {self.lossy_inner!r}; registered: "
+                    f"{available_backends()} (also accepted: 'auto')"
+                )
+            if container_method(self.lossy_inner) == fmt.METHOD_LOSSY:
+                raise ValueError(
+                    f"lossy_inner={self.lossy_inner!r} is not a lossless "
+                    "stage; pick a raw or deflate-full backend"
+                )
+            if self.decoder == "auto":
+                object.__setattr__(self, "decoder", "lossy-fz")
+        elif self.lossy_eb is not None:
+            raise ValueError(
+                f"lossy_eb is only consulted by backend='lossy-fz' "
+                f"(got backend={self.backend!r})"
+            )
+        if self.decoder == "lossy-fz" and self.backend != "lossy-fz":
+            raise ValueError(
+                "decoder='lossy-fz' decodes method-2 (lossy) containers "
+                "only; pair it with backend='lossy-fz'"
+            )
 
     @property
     def min_match(self) -> int:
@@ -95,20 +163,19 @@ class LZSSConfig:
 
 # Reference-package registry keys -> the port's.  The raw, byte-identical
 # family differs only in how it executes, so it maps to "auto"; the
-# sequential oracles map to theirs.
+# sequential oracles and the two container formats map to theirs.
 _JAX_BACKENDS = {
     "xla": "auto", "pallas-match": "auto", "fused": "auto",
     "fused-deflate": "auto", "fused-mono": "auto", "auto": "auto",
-    "xla-scan": "torch-scan",
+    "xla-scan": "torch-scan", "deflate-full": "deflate-full", "lossy-fz": "lossy-fz",
 }
 _JAX_DECODERS = {
     "xla-parallel": "auto", "fused": "auto", "fused-mono": "auto",
-    "auto": "auto", "xla-scan": "torch-scan",
+    "auto": "auto", "xla-scan": "torch-scan", "deflate-full": "deflate-full",
+    "lossy-fz": "lossy-fz",
 }
 _QUEUED = {
     "sharded": "ROADMAP.md queue 1 item 9 (sharding/batch.py)",
-    "deflate-full": "ROADMAP.md queue 1 item 7 (core/entropy.py)",
-    "lossy-fz": "ROADMAP.md queue 1 item 8 (core/bitshuffle.py + core/lossy.py)",
 }
 _JAX_FIELDS = {
     "symbol_size", "window", "chunk_symbols", "chunks_per_block", "backend",
@@ -137,13 +204,16 @@ def config_from_jax(fields: dict) -> LZSSConfig:
         mapped[key] = table[name]
     if fields.get("mesh") is not None or fields.get("batch_axis") is not None:
         raise ValueError(f"mesh=... is not ported yet: see {_QUEUED['sharded']}")
-    if fields.get("lossy_eb") is not None:
-        raise ValueError(f"lossy_eb is not ported yet: see {_QUEUED['lossy-fz']}")
+    inner = fields.get("lossy_inner", "auto")
+    if inner not in _JAX_BACKENDS:
+        raise ValueError(f"lossy_inner={inner!r} is not ported yet")
     return LZSSConfig(
         symbol_size=fields.get("symbol_size", 2),
         window=fields.get("window", 128),
         chunk_symbols=fields.get("chunk_symbols", autotune.DEFAULT_CHUNK_SYMBOLS),
         chunks_per_block=fields.get("chunks_per_block"),
+        lossy_eb=fields.get("lossy_eb"),
+        lossy_inner=_JAX_BACKENDS[inner],
         **mapped,
     )
 
@@ -166,7 +236,10 @@ class CompressorBackend(Protocol):
     A backend may define ``emit(symbols, k1, cfg, orig_bytes)`` for a batch
     of (B, nc, C) symbols and the dict reshaped to (B, nc, ...), returning
     ``(blobs (B, cap) uint8, totals list of B ints)``; ``emit_torch`` is
-    the default.
+    the default.  A backend that owns a whole container format instead
+    defines ``compress(symbols, cfg, orig_bytes)`` for one (nc, C) buffer,
+    returning ``(buffer (cap,) uint8, total bytes)``, and
+    ``container_method``, the method byte its containers carry.
     """
 
     name: str
@@ -270,9 +343,55 @@ class FusedDeflateBackend:
         )
 
 
+class EntropyBackend:
+    """Method-1 containers (core/entropy.py): the device's LZSS, then
+    canonical Huffman over both sections, with gap-array entry points."""
+
+    name = "deflate-full"
+    container_method = fmt.METHOD_HUFFMAN
+
+    def compress(self, symbols, cfg, orig_bytes=None):
+        from repro_torch.core import entropy
+
+        return entropy.compress_entropy(symbols, cfg, orig_bytes)
+
+
+class LossyFzBackend:
+    """Method-2 containers (core/lossy.py): dual-quant, bitshuffle, then
+    the ``cfg.lossy_inner`` lossless stage; ``lossy_eb == 0`` is the
+    bit-exact lossless mode."""
+
+    name = "lossy-fz"
+    container_method = fmt.METHOD_LOSSY
+
+    def compress(self, symbols, cfg, orig_bytes=None):
+        from repro_torch.core import lossy
+
+        return lossy.compress_lossy(symbols, cfg, orig_bytes)
+
+
 register_backend(TorchBackend())
 register_backend(TorchScanBackend())
 register_backend(FusedDeflateBackend())
+register_backend(EntropyBackend())
+register_backend(LossyFzBackend())
+
+
+def container_method(name: str) -> int:
+    """The container method a registry entry produces or consumes.
+
+    ``format.METHOD_RAW`` for the byte-identical LZSS family (and
+    ``"auto"``), ``METHOD_HUFFMAN`` / ``METHOD_LOSSY`` for the two
+    container pairs; looked up on the registered instance of either
+    registry.
+    """
+    name = _DECODER_ALIASES.get(name, name)
+    if name == "auto":
+        return fmt.METHOD_RAW
+    entry = _BACKENDS.get(name) or _DECODERS.get(name)
+    if entry is None:
+        raise ValueError(f"unknown backend/decoder {name!r}")
+    return getattr(entry, "container_method", fmt.METHOD_RAW)
 
 
 # ------------------------------------------------------------- decoders
@@ -283,7 +402,10 @@ class DecoderBackend(Protocol):
 
     ``decode`` maps (N, C//8) flag bytes, (N, C*S) payload bytes and (N,)
     token counts (the tensors ``deflate.gather_section`` rebuilds from a
-    container) to (N, C) int32 symbols.
+    container) to (N, C) int32 symbols.  A decoder that owns a whole
+    container format also defines ``decode_blob(blob, header)`` — a flat
+    uint8 tensor holding the container's live bytes and its host-parsed
+    ``format.Header`` -> (nc, C) int32 symbols — and ``container_method``.
     """
 
     name: str
@@ -361,9 +483,58 @@ class FusedDecoder:
         return ops.lz_decode(flag_bytes, payload, n_tokens, symbol_size=symbol_size)
 
 
+class EntropyDecoder:
+    """Method-1 containers: gap-array Huffman decode of both sections, then
+    the device's LZSS decoder.  The section-level ``decode`` (sections
+    already decoded) delegates to the device's decoder."""
+
+    name = "deflate-full"
+    container_method = fmt.METHOD_HUFFMAN
+
+    def decode(self, flag_bytes, payload, n_tokens, *, symbol_size):
+        return get_decoder("auto", flag_bytes.device).decode(
+            flag_bytes, payload, n_tokens, symbol_size=symbol_size
+        )
+
+    def decode_blob(self, blob, header):
+        from repro_torch.core import entropy
+
+        return entropy.decode_blob_entropy(blob, header)
+
+
+class LossyFzDecoder:
+    """Method-2 containers: inner lossless decode, bit-plane untranspose,
+    Lorenzo reconstruction and the exact-outlier overlay."""
+
+    name = "lossy-fz"
+    container_method = fmt.METHOD_LOSSY
+
+    def static_params(self, header):
+        """The (mode, inner method) pair a batch of lossy blobs must share."""
+        return (header.lossy_mode, header.inner_method)
+
+    def decode(self, flag_bytes, payload, n_tokens, *, symbol_size):
+        raise ValueError(
+            "lossy-fz containers (method byte 2) have no flag/payload "
+            "sections; decode them through decode_blob (lzss.decompress)"
+        )
+
+    def decode_blob(self, blob, header):
+        from repro_torch.core import lossy
+
+        if header.symbol_size != 4:
+            raise ValueError(
+                "lossy-fz containers hold f32 element streams "
+                f"(symbol_size=4); got symbol_size={header.symbol_size}"
+            )
+        return lossy.decode_blob_lossy(blob, header)
+
+
 register_decoder(TorchParallelDecoder())
 register_decoder(TorchScanDecoder())
 register_decoder(FusedDecoder())
+register_decoder(EntropyDecoder())
+register_decoder(LossyFzDecoder())
 
 
 # ------------------------------------------------------- symbol packing
@@ -446,18 +617,10 @@ def emit_torch(symbols, k1, cfg, orig_bytes):
     )
 
 
-def compress_many_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None):
-    """(B, nc, C) int32 symbols -> ((B, cap) uint8 blobs, list of B totals).
-
-    Row ``b`` holds a complete container in its first ``totals[b]`` bytes,
-    zeros beyond.  ``orig_bytes`` (B host ints) are the true pre-padding
-    byte counts for the headers; by default the padded size ``nc * C * S``.
-    Kernel I runs over all B * nc chunks at once.
-    """
-    if symbols.dim() != 3 or symbols.shape[2] != cfg.chunk_symbols:
-        raise ValueError(
-            f"symbols must be (B, nc, {cfg.chunk_symbols}), got {tuple(symbols.shape)}"
-        )
+def lzss_many(backend, symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes):
+    """Raw method-0 containers of (B, nc, C) symbols through ``backend``'s
+    Kernel-I and emit seams -> ((B, cap) uint8 blobs, list of B totals).
+    Kernel I runs over all B * nc chunks at once."""
     b, nc, c = symbols.shape
     s = cfg.symbol_size
     if fmt.max_compressed_bytes(nc * c * s, s, c) >= 2**31:
@@ -465,13 +628,34 @@ def compress_many_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None
             f"{nc * c * s} bytes per buffer is over the int32 section offsets; "
             f"split the input"
         )
-    if orig_bytes is None:
-        orig_bytes = [nc * c * s] * b
-    backend = get_backend(cfg.backend, symbols.device)
     k1 = backend.kernel1(symbols.reshape(b * nc, c), cfg)
     k1 = {k: v.reshape(b, nc, *v.shape[1:]) for k, v in k1.items()}
     emit = getattr(backend, "emit", emit_torch)
     return emit(symbols, k1, cfg, list(orig_bytes))
+
+
+def compress_many_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None):
+    """(B, nc, C) int32 symbols -> ((B, cap) uint8 blobs, list of B totals).
+
+    Row ``b`` holds a complete container in its first ``totals[b]`` bytes,
+    zeros beyond.  ``orig_bytes`` (B host ints) are the true pre-padding
+    byte counts for the headers; by default the padded size ``nc * C * S``.
+    A backend with a ``compress`` hook builds its containers one buffer at
+    a time; the raw backends run ``lzss_many``.
+    """
+    if symbols.dim() != 3 or symbols.shape[2] != cfg.chunk_symbols:
+        raise ValueError(
+            f"symbols must be (B, nc, {cfg.chunk_symbols}), got {tuple(symbols.shape)}"
+        )
+    b, nc, c = symbols.shape
+    if orig_bytes is None:
+        orig_bytes = [nc * c * cfg.symbol_size] * b
+    backend = get_backend(cfg.backend, symbols.device)
+    whole = getattr(backend, "compress", None)
+    if whole is None:
+        return lzss_many(backend, symbols, cfg, orig_bytes)
+    outs = [whole(symbols[r], cfg, int(orig_bytes[r])) for r in range(b)]
+    return torch.stack([o[0] for o in outs]), [int(o[1]) for o in outs]
 
 
 def compress_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None):

@@ -21,7 +21,7 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("lz_match", "lz_scatter", "lz_decode")
+SOURCES = ("lz_match", "lz_scatter", "lz_decode", "lz_entropy", "lz_bitshuffle")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +41,14 @@ SIGNATURES = {
     },
     "lz_decode": {
         "lz_decode_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
+    },
+    "lz_entropy": {
+        "lz_byte_histogram_launch": [_P, _L, _L, _P, _P],
+        "lz_gap_decode_launch": [_P, _L, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P],
+    },
+    "lz_bitshuffle": {
+        "lz_bitshuffle_launch": [_P, _I, _P, _P],
+        "lz_bitunshuffle_launch": [_P, _I, _P, _P],
     },
 }
 
@@ -136,6 +144,20 @@ def ptxas_report() -> dict:
                 if "ptxas" in ln and ("Used" in ln or "Compiling" in ln or "spill" in ln)
             ]
     return out
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Raise unless every tensor lies on a CUDA device."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} takes CUDA tensors, got one on {t.device}")
+
+
+def stream(t) -> int:
+    """The handle of PyTorch's current CUDA stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

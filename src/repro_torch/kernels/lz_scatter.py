@@ -15,16 +15,6 @@ from repro_torch.core import deflate
 from repro_torch.kernels import _build
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _require_cuda(name, *tensors):
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} takes CUDA tensors, got one on {t.device}")
-
-
 # ------------------------------------------------------------ Kernel II
 
 
@@ -46,7 +36,7 @@ def global_offsets_plain(n_tokens, payload_sizes):
 
 def global_offsets_cuda(n_tokens, payload_sizes):
     """The same function by one launch of the CUDA Kernel II."""
-    _require_cuda("Kernel II", n_tokens, payload_sizes)
+    _build.require_cuda("Kernel II", n_tokens, payload_sizes)
     if n_tokens.dim() != 2 or n_tokens.shape != payload_sizes.shape:
         raise ValueError(
             f"Kernel II takes two (rows, nc) tensors, got "
@@ -61,7 +51,7 @@ def global_offsets_cuda(n_tokens, payload_sizes):
     lib = _build.library("lz_scatter")
     code = lib.lz_global_offsets_launch(
         nt.data_ptr(), ps.data_ptr(), rows, nc,
-        flag_off.data_ptr(), pay_off.data_ptr(), totals.data_ptr(), _stream(nt),
+        flag_off.data_ptr(), pay_off.data_ptr(), totals.data_ptr(), _build.stream(nt),
     )
     _build.check(lib, code, "Kernel II (lz_global_offsets_launch)")
     return flag_off, pay_off, totals
@@ -107,7 +97,7 @@ def scatter_plain(symbols, lengths, offsets, emitted, local_off, flag_off, pay_o
 def scatter_cuda(symbols, lengths, offsets, emitted, local_off, flag_off, pay_off,
                  *, symbol_size, min_match, cap, sec_flags):
     """The same function by one launch of the CUDA Kernel III."""
-    _require_cuda("Kernel III", symbols, lengths, offsets, emitted, local_off,
+    _build.require_cuda("Kernel III", symbols, lengths, offsets, emitted, local_off,
                   flag_off, pay_off)
     rows, nc, c = symbols.shape
     for name, t, shape in (
@@ -126,7 +116,7 @@ def scatter_cuda(symbols, lengths, offsets, emitted, local_off, flag_off, pay_of
     lib = _build.library("lz_scatter")
     code = lib.lz_scatter_launch(
         *[a.data_ptr() for a in args], rows, nc, c, symbol_size, min_match,
-        sec_flags, cap, blob.data_ptr(), _stream(blob),
+        sec_flags, cap, blob.data_ptr(), _build.stream(blob),
     )
     _build.check(lib, code, "Kernel III (lz_scatter_launch)")
     return blob

@@ -1,4 +1,4 @@
-"""Public wrappers of the port's four CUDA kernels, with launch counts.
+"""Public wrappers of the port's CUDA kernels, with launch counts.
 
 Each wrapper launches its CUDA kernel for CUDA tensors, or raises; it runs
 the kernel's plain PyTorch version only for CPU tensors (which is what the
@@ -9,11 +9,16 @@ goes up only where its kernel was launched, never for the plain version.
 
 from __future__ import annotations
 
+from repro_torch.kernels import lz_bitshuffle as _bshuf
 from repro_torch.kernels import lz_decode as _dec
+from repro_torch.kernels import lz_entropy as _ent
 from repro_torch.kernels import lz_match as _match
 from repro_torch.kernels import lz_scatter as _scat
 
-KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode")
+KERNELS = (
+    "lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode",
+    "byte_histogram", "huffman_gap_decode", "bitshuffle", "bitunshuffle",
+)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -75,4 +80,46 @@ def lz_decode(flag_bytes, payload, n_tokens, *, symbol_size):
         return _dec.lz_decode_plain(flag_bytes, payload, n_tokens, symbol_size=symbol_size)
     out = _dec.lz_decode_cuda(flag_bytes, payload, n_tokens, symbol_size=symbol_size)
     LAUNCHES["lz_decode"] += 1
+    return out
+
+
+def byte_histogram(buf, start, length):
+    """(256,) int32 counts of the byte values of ``buf[start : start + length]``."""
+    if _on_cpu(buf):
+        return _ent.byte_histogram_plain(buf, start, length)
+    out = _ent.byte_histogram_cuda(buf, start, length)
+    if length:  # an empty range launches nothing
+        LAUNCHES["byte_histogram"] += 1
+    return out
+
+
+def huffman_gap_decode(blob, wstarts, rems, first, count, base, order, *, sub):
+    """Gap-array canonical-Huffman decode: (nsub,) entry points + canonical
+    tables -> (nsub, sub) uint8 symbols."""
+    args = (blob, wstarts, rems, first, count, base, order)
+    if _on_cpu(blob):
+        return _ent.huffman_gap_decode_plain(*args, sub=sub)
+    out = _ent.huffman_gap_decode_cuda(*args, sub=sub)
+    if wstarts.numel():
+        LAUNCHES["huffman_gap_decode"] += 1
+    return out
+
+
+def bitshuffle(units):
+    """(N,) int16 units -> (2N,) uint8 bit planes, N % 512 == 0."""
+    if _on_cpu(units):
+        return _bshuf.bitshuffle_plain(units)
+    out = _bshuf.bitshuffle_cuda(units)
+    if units.numel():
+        LAUNCHES["bitshuffle"] += 1
+    return out
+
+
+def bitunshuffle(shuffled):
+    """(2N,) uint8 bit planes -> (N,) int16 units."""
+    if _on_cpu(shuffled):
+        return _bshuf.bitunshuffle_plain(shuffled)
+    out = _bshuf.bitunshuffle_cuda(shuffled)
+    if shuffled.numel():
+        LAUNCHES["bitunshuffle"] += 1
     return out

@@ -240,8 +240,8 @@ def test_config_from_jax_maps_raw_family(backend, want):
 
 
 @pytest.mark.parametrize("fields,item", [
-    (dict(backend="deflate-full"), "item 7"),
-    (dict(backend="lossy-fz", symbol_size=4, lossy_eb=1e-3), "item 8"),
+    (dict(backend="sharded"), "item 9"),
+    (dict(backend="deflate-full", decoder="sharded"), "item 9"),
     (dict(decoder="sharded"), "item 9"),
 ])
 def test_config_from_jax_rejects_queued_entries(fields, item):
@@ -256,8 +256,10 @@ def test_auto_resolves_by_device():
     assert tpipe.resolve_decoder("auto", "cpu") == "torch-parallel"
     assert tpipe.resolve_decoder("auto", "cuda") == "fused"
     assert tpipe.resolve_decoder("scan", "cpu") == "torch-scan"
-    assert tcore.available_backends() == ["fused-deflate", "torch", "torch-scan"]
-    assert tcore.available_decoders() == ["fused", "torch-parallel", "torch-scan"]
+    assert tcore.available_backends() == [
+        "deflate-full", "fused-deflate", "lossy-fz", "torch", "torch-scan"]
+    assert tcore.available_decoders() == [
+        "deflate-full", "fused", "lossy-fz", "torch-parallel", "torch-scan"]
 
 
 def test_host_api_needs_a_card_unless_cpu_is_asked_for(monkeypatch):
@@ -358,9 +360,13 @@ def test_golden_corpus_is_complete():
 
 @pytest.mark.parametrize("name", ["u8_s1_w32_c64_deflate", "f32_s4_w64_c64_lossy"])
 def test_unported_container_methods_raise(name):
+    """Method-1 and method-2 containers are ported now: a raw decoder still
+    refuses them, naming the method, and ``auto`` routes them to theirs."""
     blob = (GOLDEN / f"{name}.gplz").read_bytes()
-    with pytest.raises(ValueError, match="not ported yet"):
-        tcore.decompress(blob, device=CPU)
+    with pytest.raises(ValueError, match="method"):
+        tcore.decompress(blob, decoder="torch-parallel", device=CPU)
+    raw = (GOLDEN / f"{name}.input.bin").read_bytes()
+    assert len(tcore.decompress(blob, device=CPU)) == len(raw)
 
 
 def test_decompress_many_rejects_mixed_geometry():

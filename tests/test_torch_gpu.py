@@ -6,7 +6,8 @@ toolkit are installed:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Outputs are integers: the tolerance is exact equality.
+Outputs are integers: the tolerance is exact equality, except the values
+of lossy-fz containers, which are held to their error bound.
 """
 
 import numpy as np
@@ -14,10 +15,11 @@ import pytest
 import torch
 
 from repro_torch import core
-from repro_torch.core import format as fmt, pipeline as pl
-from repro_torch.kernels import ops
+from repro_torch.core import entropy, format as fmt, pipeline as pl
+from repro_torch.kernels import lz_bitshuffle, lz_entropy, ops
 
 GEOMETRIES = [(1, 32, 64), (2, 128, 128), (4, 255, 64), (4, 128, 2048), (2, 255, 32768)]
+LZSS_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode")
 
 
 @pytest.fixture
@@ -52,7 +54,8 @@ def test_kernel_path_equals_plain_path(cuda, s, w, c):
     got = pl.decompress_chunks(blob[:total], *tables, decoder="fused", **kw)
     want = pl.decompress_chunks(blob[:total], *tables, decoder="torch-parallel", **kw)
     assert torch.equal(got, want) and torch.equal(got, sym.to(torch.int32))
-    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
+    counts = ops.launch_counts()
+    assert {k: counts[k] for k in LZSS_KERNELS} == dict.fromkeys(LZSS_KERNELS, 1)
 
 
 @pytest.mark.gpu
@@ -61,5 +64,101 @@ def test_host_api_defaults_to_the_card(cuda):
     ops.reset_launch_counts()
     res = core.compress(data)
     assert np.array_equal(core.decompress(res.data), data)
-    assert all(v == 1 for v in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] == 1 for k in LZSS_KERNELS)
     assert np.array_equal(res.data, core.compress(data, device="cpu").data)
+
+
+# ------------------------------------------------ entropy and lossy stages
+
+
+def _section(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "skewed":
+        return np.repeat(rng.integers(0, 40, n), rng.integers(1, 9, n)).astype(np.uint8)[:n]
+    if kind == "one-symbol":
+        return np.full(n, 9, np.uint8)
+    return np.tile(np.arange(256, dtype=np.uint8), n // 256 + 1)[:n]  # stored escape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start,length", [(0, 1 << 20), (3, 1000), (17, (1 << 20) - 40), (5, 0)])
+def test_histogram_kernel_equals_plain(cuda, start, length):
+    buf = torch.from_numpy(_section("skewed", 1 << 20, seed=1)).to(cuda)
+    got = lz_entropy.byte_histogram_cuda(buf, start, length)
+    assert torch.equal(got, lz_entropy.byte_histogram_plain(buf, start, length))
+    want = torch.bincount(buf[start : start + length].long(), minlength=256).to(torch.int32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n", [("skewed", 70_000), ("one-symbol", 1500), ("escape", 2000),
+                                    ("skewed", 513)])
+def test_gap_decode_kernel_equals_plain(cuda, kind, n):
+    sec = _section(kind, n, seed=n)
+    buf = torch.from_numpy(sec).to(cuda)
+    counts = np.bincount(sec, minlength=256)
+    l = entropy.container_code_lengths(counts)
+    stream, nbits, gaps = entropy.encode_section(buf, 0, n, l, cap=n)
+    assert nbits == int((counts * l).sum())
+    nbytes = (nbits + 7) // 8
+    blob = stream[:nbytes].contiguous()  # reads past the stream's end give zeros
+    tabs = entropy.canonical_tables(l, cuda)
+    nsub = -(-n // 512)
+    args = (blob, gaps[:nsub] >> 3, (gaps[:nsub] & 7).to(torch.int32), tabs["first"],
+            tabs["count"], tabs["base"], tabs["order"])
+    got = lz_entropy.huffman_gap_decode_cuda(*args, sub=512)
+    assert torch.equal(got, lz_entropy.huffman_gap_decode_plain(*args, sub=512))
+    assert np.array_equal(got.reshape(-1)[:n].cpu().numpy(), sec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nblocks", [1, 3, 4096])
+def test_bitshuffle_kernels_equal_plain(cuda, nblocks):
+    rng = np.random.default_rng(nblocks)
+    units = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, 512 * nblocks).astype(np.int16))
+    units = units.to(cuda)
+    shuffled = lz_bitshuffle.bitshuffle_cuda(units)
+    assert torch.equal(shuffled, lz_bitshuffle.bitshuffle_plain(units))
+    back = lz_bitshuffle.bitunshuffle_cuda(shuffled)
+    assert torch.equal(back, lz_bitshuffle.bitunshuffle_plain(shuffled))
+    assert torch.equal(back, units)
+
+
+def _field(n, seed):
+    rng = np.random.default_rng(seed)
+    x = (np.cumsum(rng.normal(size=n)) * 0.03 + np.sin(np.linspace(0, 20, n))).astype(np.float32)
+    x[5:9] = [np.nan, np.inf, -np.inf, 1e30]
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 2, 4])
+def test_deflate_full_on_the_card(cuda, s):
+    data = _section("skewed", 300_000, seed=s)
+    cfg = core.LZSSConfig(symbol_size=s, chunk_symbols=2048, backend="deflate-full")
+    ops.reset_launch_counts()
+    res = core.compress(data, cfg)
+    assert np.array_equal(core.decompress(res.data), data)
+    counts = ops.launch_counts()
+    assert counts["byte_histogram"] == 2 and counts["huffman_gap_decode"] == 2
+    assert np.array_equal(res.data, core.compress(data, cfg, device="cpu").data)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eb,inner", [(1e-3, "auto"), (1e-3, "deflate-full"), (0.0, "auto")])
+def test_lossy_fz_on_the_card(cuda, eb, inner):
+    x = _field(200_000, seed=3)
+    cfg = core.LZSSConfig(symbol_size=4, backend="lossy-fz", lossy_eb=eb, lossy_inner=inner)
+    ops.reset_launch_counts()
+    res = core.compress(x, cfg)
+    y = core.decompress(res.data).view(np.float32)
+    counts = ops.launch_counts()
+    assert counts["bitshuffle"] == 1 and counts["bitunshuffle"] == 1
+    if eb == 0.0:
+        assert np.array_equal(y.view(np.uint32), x.view(np.uint32))
+    else:
+        fin = np.isfinite(x)
+        assert np.abs(y[fin] - x[fin]).max() <= np.float32(eb)
+        assert np.array_equal(y[~fin].view(np.uint32), x[~fin].view(np.uint32))
+    assert np.array_equal(res.data, core.compress(x, cfg, device="cpu").data)

@@ -5,9 +5,14 @@ held to the reference here: Kernel I to ``repro.kernels.ref.lz_kernel1``,
 Kernel II to the interpret-mode Pallas ``lz_global_offsets_pallas`` and to
 ``deflate.global_offsets``, Kernel III to the sections of the reference's
 ``emit_xla`` container, and the decoder to the interpret-mode Pallas
-``lz_decode_pallas`` and to ``decode.decode_parallel``.  (The reference's
-Pallas Kernels I and III do not run on the installed jax.)  Outputs are
-integers: the tolerance is exact equality.  The CUDA kernels themselves
+``lz_decode_pallas`` and to ``decode.decode_parallel``, the byte histogram
+to the interpret-mode Pallas ``byte_histogram_pallas`` and the XLA
+scatter-add, the gap decoder to the interpret-mode Pallas
+``huffman_gap_decode_pallas`` (every lane) and the XLA ``decode_section``,
+and the bitshuffle pair to the interpret-mode Pallas kernels and
+``shuffle_xla`` / ``unshuffle_xla``.  (The reference's Pallas Kernels I and
+III do not run on the installed jax.)  Outputs are integers: the tolerance
+is exact equality.  The CUDA kernels themselves
 are held to these plain versions on the card by tests/test_torch_gpu.py.
 """
 
@@ -18,14 +23,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import bitshuffle as jbs
 from repro.core import decode as jdecode
 from repro.core import deflate as jdeflate
+from repro.core import entropy as jent
 from repro.core import format as jfmt
 from repro.core import pipeline as jpipe
+from repro.kernels import lz_bitshuffle as jlz_bitshuffle
 from repro.kernels import lz_decode as jlz_decode
+from repro.kernels import lz_entropy as jlz_entropy
 from repro.kernels import lz_scatter as jlz_scatter
 from repro.kernels import ref as jref
-from repro_torch.core import autotune, deflate as tdeflate, pipeline as tpipe
+from repro_torch.core import autotune, deflate as tdeflate, entropy as tent, pipeline as tpipe
 from repro_torch.kernels import _build, ops
 
 GEOMETRIES = [(1, 32, 64), (2, 128, 128), (4, 255, 64), (2, 64, 256)]
@@ -140,6 +149,90 @@ def test_wrappers_refuse_other_devices():
         ops.lz_kernel1(meta, window=8, min_match=2, symbol_size=2)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.lz_decode(meta.to(torch.uint8), meta, meta[:, 0], symbol_size=2)
+    flat = torch.empty(1024, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.byte_histogram(flat, 0, 10)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.huffman_gap_decode(flat, flat, flat, flat, flat, flat, flat, sub=512)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.bitshuffle(flat.view(torch.int16))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.bitunshuffle(flat)
+
+
+# ------------------------------------------------ entropy and bitshuffle
+
+
+@pytest.mark.parametrize("start,length", [(0, 5000), (17, 3000), (4999, 1), (100, 0)])
+def test_histogram_plain_equals_reference(start, length):
+    buf = np.random.default_rng(1).integers(0, 256, 5000).astype(np.uint8)
+    got = ops.byte_histogram(torch.from_numpy(buf), start, length)
+    want = jent.byte_histogram(jnp.asarray(buf, jnp.int32), start, length, impl="xla")
+    assert np.array_equal(_np(got), _np(want))
+    if start == 17:  # the Pallas kernel in interpret mode is slow: one range
+        pal = jlz_entropy.byte_histogram_pallas(jnp.asarray(buf, jnp.int32), start, length,
+                                                interpret=True)
+        assert np.array_equal(_np(got), _np(pal))
+
+
+def _coded_section(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "skewed":
+        sec = np.repeat(rng.integers(0, 30, n), rng.integers(1, 5, n)).astype(np.uint8)[:n]
+    elif kind == "one-symbol":
+        sec = np.full(n, 200, np.uint8)
+    else:  # an exactly flat histogram: the stored escape
+        sec = np.tile(np.arange(256, dtype=np.uint8), n // 256 + 1)[:n]
+    lengths = tent.container_code_lengths(np.bincount(sec, minlength=256))
+    # one capacity for every case: the reference's scan compiles per shape
+    stream, nbits, gaps = tent.encode_section(torch.from_numpy(sec), 0, n, lengths, cap=1536)
+    return sec, lengths, stream, gaps, nbits
+
+
+def test_gap_decode_plain_equals_pallas_on_every_lane():
+    sec, lengths, stream, gaps, nbits = _coded_section("skewed", 700, seed=3)
+    tabs = tent.canonical_tables(lengths)
+    # the live stream at byte 5, nothing after it: reads past the end are zeros
+    blob = torch.cat([torch.zeros(5, dtype=torch.uint8), stream[: (nbits + 7) // 8]])
+    gaps = gaps[:2]
+    wstarts, rems = 5 + (gaps >> 3), (gaps & 7).to(torch.int32)
+    args = [tabs[k] for k in ("first", "count", "base", "order")]
+    got = ops.huffman_gap_decode(blob, wstarts, rems, *args, sub=512)
+    want = jlz_entropy.huffman_gap_decode_pallas(
+        jnp.asarray(blob.numpy(), jnp.int32), jnp.asarray(wstarts.numpy(), jnp.int32),
+        jnp.asarray(rems.numpy()), *(jnp.asarray(a.numpy()) for a in args),
+        sub=512, interpret=True,
+    )
+    assert got.shape == (2, 512)
+    assert np.array_equal(_np(got), _np(want))  # the partial sub-block's tail too
+    assert np.array_equal(got.reshape(-1)[:700].numpy(), sec)
+
+
+@pytest.mark.parametrize("kind,n", [("skewed", 1500), ("one-symbol", 600), ("escape", 768),
+                                    ("skewed", 513)])
+def test_gap_decode_plain_equals_reference_scan(kind, n):
+    sec, lengths, stream, gaps, _ = _coded_section(kind, n, seed=n)
+    got = tent.decode_section(stream, 0, gaps, lengths, count=n, cap=1536)
+    want = jent.decode_section(jnp.asarray(stream.numpy(), jnp.int32), 0,
+                               jnp.asarray(gaps.numpy(), jnp.int32),
+                               jnp.asarray(lengths, jnp.int32), count=n, cap=1536, impl="xla")
+    assert np.array_equal(_np(got), _np(want))
+    assert np.array_equal(got.numpy()[:n], sec)
+
+
+@pytest.mark.parametrize("nblocks", [1, 2])
+def test_bitshuffle_plain_equals_reference(nblocks):
+    units = np.random.default_rng(nblocks).integers(0, 1 << 16, 512 * nblocks).astype(np.uint16)
+    got = ops.bitshuffle(torch.from_numpy(units.view(np.int16).copy()))
+    assert np.array_equal(_np(got), _np(jbs.shuffle_xla(jnp.asarray(units))))
+    back = ops.bitunshuffle(got)
+    assert np.array_equal(back.numpy().view(np.uint16),
+                          np.asarray(jbs.unshuffle_xla(jnp.asarray(got.numpy()))))
+    if nblocks == 2:  # the Pallas kernels in interpret mode
+        pal = jlz_bitshuffle.bitshuffle_pallas(jnp.asarray(units), interpret=True)
+        assert np.array_equal(_np(got), _np(pal))
+        unpal = jlz_bitshuffle.bitunshuffle_pallas(pal, interpret=True)
+        assert np.array_equal(back.numpy().view(np.uint16), np.asarray(unpal))
 
 
 def test_bindings_match_the_cuda_sources():
