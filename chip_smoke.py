@@ -7,12 +7,15 @@ toolkit (nvcc).  It imports nothing of JAX or of the reference package.
 Phases, any failure of which exits non-zero:
 
   1. card       name and power limit (nvidia-smi), torch's device name
-  2. build      the eight kernels' five sources from src/repro_torch/csrc,
+  2. build      the eleven kernels' seven sources from src/repro_torch/csrc,
                 ptxas -v lines
   3. kernels    each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors, exactly equal (integer outputs): the
-                LZSS kernels at C=2048 with S in {1,2,4} x W in
-                {32,128,255}, and C=32768; the byte histogram over
+                LZSS kernels (split, one-launch and match-only) at C=2048
+                with S in {1,2,4} x W in {32,128,255}, and C=32768, the
+                one-launch pair also against the split kernels and on a
+                ragged batch of 3 blobs holding only their live bytes; the
+                byte histogram over
                 unaligned ranges of a 37 MB container; the gap decoder on
                 a skewed code, a stored-escape code and partial last
                 sub-blocks; bitshuffle / unshuffle of 1 and 65,536 blocks
@@ -21,12 +24,18 @@ Phases, any failure of which exits non-zero:
                 version-1 blobs decode (lossy ones within their bound)
   5. main path  the host API at real sizes, in two paths, each with the
                 launch counts set to 0 before it and read after it: the
-                raw LZSS codec (PR 11's path) and the two container
-                formats (deflate-full, lossy-fz at eb=1e-3 with a
-                deflate-full inner stage and at eb=0, and a compress_many
-                batch); round trips exact or within eb, and containers
-                equal to the plain PyTorch path run on the card
-  6. times      host-clock throughput of the main path, a stage breakdown
+                raw LZSS codec and the two container formats
+                (deflate-full, lossy-fz at eb=1e-3 with a deflate-full
+                inner stage and at eb=0, and a compress_many batch).  The
+                raw path runs the default one-launch pair (exactly one
+                launch per compress and per decompress call, single or
+                batched, and no split kernel), the split kernels
+                (backend="fused-deflate", decoder="fused") and the
+                match-only backend ("cuda-match"); round trips exact or
+                within eb, containers equal to the plain PyTorch path run
+                on the card, and no plain emit tail on the default path
+  6. times      host-clock throughput of the main path, the one-launch and
+                split host APIs in turns, a stage breakdown
                 of one raw and one lossy-fz round trip, CUDA-event times of
                 each kernel, its plain version and, where one exists, the
                 PyTorch call computing the same function, at the main
@@ -84,7 +93,8 @@ def main() -> None:
     from repro_torch import core
     from repro_torch.core import deflate, format as fmt, pipeline as pl
     from repro_torch.data import datasets
-    from repro_torch.kernels import _build, lz_decode, lz_match, lz_scatter, ops
+    from repro_torch.kernels import (
+        _build, lz_decode, lz_decode_mono, lz_fused, lz_match, lz_scatter, ops)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -133,8 +143,58 @@ def main() -> None:
         err["lz_decode"] = max(err["lz_decode"], diff(d, lz_decode.lz_decode_plain(flags, pay, nt, symbol_size=s)))
         if not torch.equal(d, sym):
             fail(f"decoder does not invert the compressor at S={s} W={w} C={c}")
+        ml = lz_match.lz_match_cuda(sym, window=w, symbol_size=s)
+        pl_ = lz_match.lz_match_plain(sym, window=w, symbol_size=s)
+        err["lz_match"] = max(err["lz_match"], *(diff(a, b) for a, b in zip(ml, pl_)))
+        hold_mono(sym[None], s, w, c, blob, (p1["n_tokens"][None], p1["payload_sizes"][None], p2[2]), d[None])
         print(f"[kernels] S={s} W={w} C={c} nc={nc}: {total} container bytes, "
               f"max |kernel - plain| so far {err}")
+
+    def hold_mono(sym, s, w, c, split_blob, split_tables, split_symbols) -> None:
+        """The one-launch pair on (B, nc, C) symbols against its plain
+        versions and the split kernels' blobs, tables and symbols; the
+        decoder reads blobs cut to the longest live end (each row's bytes
+        past its live end are zeros)."""
+        nc = sym.shape[1]
+        kwm = dict(window=w, min_match=core.LZSSConfig(symbol_size=s).min_match, symbol_size=s,
+                   cap=fmt.max_compressed_bytes(nc * c * s, s, c), sec_flags=fmt.HEADER_BYTES + 8 * nc)
+        mono = lz_fused.lz_fused_mono_cuda(sym, **kwm)
+        err["lz_fused_mono"] = max(err["lz_fused_mono"], *(
+            diff(a, b) for a, b in zip(mono, lz_fused.lz_fused_mono_plain(sym, **kwm))))
+        if diff(mono[0], split_blob) or any(diff(a, b) for a, b in zip(mono[1:], split_tables)):
+            fail(f"one-launch compressor differs from the split kernels at S={s} W={w} C={c}")
+        live = kwm["sec_flags"] + int(mono[3].sum(1).max())
+        args = (mono[0][:, :live].contiguous(), mono[1], mono[2])
+        dm = lz_decode_mono.lz_decode_mono_cuda(*args, symbol_size=s, chunk_symbols=c)
+        err["lz_decode_mono"] = max(err["lz_decode_mono"], diff(
+            dm, lz_decode_mono.lz_decode_mono_plain(*args, symbol_size=s, chunk_symbols=c)))
+        if diff(dm, split_symbols) or diff(dm, sym):
+            fail(f"one-launch decoder differs from the split decoder at S={s} W={w} C={c}")
+
+    def hold_ragged(s, w, c, nc) -> None:
+        """A batch of 3 unlike buffers (data, data with a zeroed half,
+        noise) through the split kernels and the one-launch pair."""
+        n = nc * c * s
+        raws = [pool[s][:n].copy(), pool[s][n : 2 * n].copy(),
+                np.random.default_rng(c).integers(0, 256, n).astype(np.uint8)]
+        raws[1][n // 2 :] = 0
+        sym = torch.stack([pl.pack_symbols(torch.from_numpy(r).to(dev), s).reshape(nc, c)
+                           for r in raws])
+        kw = dict(window=w, min_match=core.LZSSConfig(symbol_size=s).min_match, symbol_size=s)
+        k1 = lz_match.lz_kernel1_cuda(sym.reshape(3 * nc, c), **kw)
+        k1 = {k: v.reshape(3, nc, *v.shape[1:]) for k, v in k1.items()}
+        fo, po, tot = lz_scatter.global_offsets_cuda(k1["n_tokens"], k1["payload_sizes"])
+        blob = lz_scatter.scatter_cuda(
+            sym, k1["lengths"], k1["offsets"], k1["emitted"], k1["local_off"], fo, po,
+            symbol_size=s, min_match=kw["min_match"], cap=fmt.max_compressed_bytes(n, s, c),
+            sec_flags=fmt.HEADER_BYTES + 8 * nc)
+        d = torch.stack([lz_decode.lz_decode_cuda(*sections(blob[r], k1["n_tokens"][r],
+                                                            k1["payload_sizes"][r], s, c),
+                                                  symbol_size=s) for r in range(3)])
+        hold_mono(sym, s, w, c, blob, (k1["n_tokens"], k1["payload_sizes"], tot), d)
+        print(f"[kernels] ragged batch of 3 at S={s} W={w} C={c} nc={nc}: live ends "
+              f"{[fmt.HEADER_BYTES + 8 * nc + int(t) for t in tot.sum(1).tolist()]}, "
+              f"one-launch pair equal to its plain versions and the split kernels")
 
     def sections(blob, n_tokens, payload_sizes, s, c):
         nc = n_tokens.numel()
@@ -150,6 +210,8 @@ def main() -> None:
             hold(s, w, 2048, 256)
     for s, w in ((4, 128), (2, 255), (1, 32)):
         hold(s, w, 32768, 8)
+    for s, w, c, nc in ((2, 128, 2048, 64), (4, 255, 2048, 32), (1, 32, 32768, 4)):
+        hold_ragged(s, w, c, nc)
     runs = [
         ("hurr-quant", 128 * MIB, core.LZSSConfig()),
         ("rtm-float32", 64 * MIB, core.LZSSConfig(symbol_size=4)),
@@ -203,28 +265,57 @@ def main() -> None:
     core.decompress(core.compress(batch[0][: MIB]).data)
     torch.cuda.synchronize()
 
+    # Each host-API call of the raw path is driven through ``call``: it
+    # times the call and checks the launches it made (the count deltas)
+    # and the plain emit tail's calls against what its entries must launch.
+    default = {"compress": {"lz_fused_mono": 1}, "decompress": {"lz_decode_mono": 1}}
+    split = {"compress": {"lz_kernel1": 1, "lz_global_offsets": 1, "lz_scatter": 1},
+             "decompress": {"lz_decode": 1}}
+    emit_calls = count_calls(pl, "emit_torch")
+
+    def call(label, fn, want):
+        before = dict(ops.launch_counts(), emit_torch=emit_calls[0])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        after = dict(ops.launch_counts(), emit_torch=emit_calls[0])
+        made = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if made != want:
+            fail(f"{label}: launched {made}, expected {want}")
+        return out, t
+
     ops.reset_launch_counts()
     results, times = {}, {}
     for name, n, cfg in runs:
-        t0 = time.perf_counter()
-        res = core.compress(inputs[name], cfg)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        back = core.decompress(res.data)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        res, tc = call(f"{name} compress", lambda: core.compress(inputs[name], cfg),
+                       default["compress"])
+        back, td = call(f"{name} decompress", lambda: core.decompress(res.data),
+                        default["decompress"])
         results[name] = (res, back)
-        times[name] = (t1 - t0, t2 - t1)
-    t0 = time.perf_counter()
-    many = core.compress_many(batch, core.LZSSConfig())
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    many_back = core.decompress_many(many)
-    torch.cuda.synchronize()
-    times["batch 8 x 8 MiB hurr-quant"] = (t1 - t0, time.perf_counter() - t1)
+        times[name] = (tc, td)
+    many, tc = call("batch compress_many", lambda: core.compress_many(batch, core.LZSSConfig()),
+                    default["compress"])
+    many_back, td = call("batch decompress_many", lambda: core.decompress_many(many),
+                         default["decompress"])
+    times["batch 8 x 8 MiB hurr-quant"] = (tc, td)
+    hq = inputs["hurr-quant"]
+    split_cfg = core.LZSSConfig(backend="fused-deflate", decoder="fused")
+    split_res, tc = call("split compress", lambda: core.compress(hq, split_cfg), split["compress"])
+    split_back, td = call("split decompress", lambda: core.decompress(split_res.data, "fused"),
+                          split["decompress"])
+    times["hurr-quant split kernels (fused-deflate / fused)"] = (tc, td)
+    match_res, tc = call("cuda-match compress",
+                         lambda: core.compress(hq, core.LZSSConfig(backend="cuda-match")),
+                         {"lz_match": 1, "emit_torch": 1})
+    times["hurr-quant cuda-match (then the default decoder)"] = (
+        tc, call("cuda-match decompress", lambda: core.decompress(match_res.data),
+                 default["decompress"])[1])
     launches = ops.launch_counts()
-    print(f"[main] launches on the raw LZSS path: {launches}")
-    if any(launches[k] < 1 for k in LZSS_KERNELS):
+    print(f"[main] launches on the raw LZSS path: {launches}, plain emit tail calls "
+          f"{emit_calls[0]} (the cuda-match run's)")
+    if any(launches[k] < 1 for k in RAW_KERNELS):
         fail(f"a kernel was not launched on the raw LZSS path: {launches}")
 
     for name, n, cfg in runs:
@@ -239,13 +330,21 @@ def main() -> None:
         print(f"[main] {name} {n // MIB} MiB S={cfg.symbol_size} W={cfg.window} "
               f"C={cfg.chunk_symbols}: ratio {res.ratio!r}, {res.total_bytes} bytes, exact, "
               f"equal to the plain path")
+    hq_plain = results["hurr-quant"][0].data
+    for label, res, back in (("split kernels", split_res, split_back),
+                             ("cuda-match", match_res, None)):
+        if not np.array_equal(res.data, hq_plain):
+            fail(f"hurr-quant {label}: the container differs from the plain path's")
+        if back is not None and not np.array_equal(back, hq):
+            fail(f"hurr-quant {label}: round trip is not exact")
+        print(f"[main] hurr-quant 128 MiB through the {label}: equal to the plain path")
     plain_many = core.compress_many(batch, core.LZSSConfig(backend="torch"))
     if not np.array_equal(plain_many.data, many.data):
         fail("batch: the kernels' containers differ from the plain path's")
     if not all(np.array_equal(a, b) for a, b in zip(many_back, batch)):
         fail("batch: round trip is not exact")
     print(f"[main] batch 8 x 8 MiB: ratio {many.ratio!r}, exact, equal to the plain path")
-    ctimes, claunches = container_main_path(inputs)
+    ctimes, claunches = container_main_path(inputs, emit_calls)
     times.update(ctimes)
     launches = {k: launches[k] + claunches[k] for k in ops.KERNELS}
     for name, (tc, td) in times.items():
@@ -253,6 +352,29 @@ def main() -> None:
         print(f"[time] {card} | {name}: compress {tc * 1e3:.1f} ms ({n / tc / 1e9:.3f} GB/s), "
               f"decompress {td * 1e3:.1f} ms ({n / td / 1e9:.3f} GB/s), host clock, "
               f"host API incl. copies")
+
+    # ----------------------- the one-launch pair and the split kernels, in turns
+    # Host-API compress and decompress of the 128 MiB hurr-quant input through
+    # each, in the order one-launch, split, split, one-launch, eight times.
+    entries = {"one-launch": (core.LZSSConfig(backend="fused-mono"), "fused-mono", default),
+               "split": (core.LZSSConfig(backend="fused-deflate"), "fused", split)}
+    turns = {who: ([], []) for who in entries}
+    for who in ("one-launch", "split", "split", "one-launch") * 8:
+        cfg, dec, want = entries[who]
+        res, tc = call(f"{who} compress", lambda: core.compress(hq, cfg), want["compress"])
+        back, td = call(f"{who} decompress", lambda: core.decompress(res.data, dec),
+                        want["decompress"])
+        if not (np.array_equal(res.data, hq_plain) and np.array_equal(back, hq)):
+            fail(f"{who}: round trip of hurr-quant is not exact or not the plain container")
+        turns[who][0].append(tc * 1e3)
+        turns[who][1].append(td * 1e3)
+    for i, direction in enumerate(("compress", "decompress")):
+        one, two = (sum(turns[w][i]) / len(turns[w][i]) for w in entries)
+        print(f"[time] {card} | host API {direction}, hurr-quant 128 MiB, in turns: "
+              f"one-launch mean {one:.3f} ms {[round(t, 3) for t in turns['one-launch'][i]]}, "
+              f"split mean {two:.3f} ms {[round(t, 3) for t in turns['split'][i]]}; "
+              f"{'one-launch' if one <= two else 'split'} faster; default "
+              f"{pl.default_backend(dev) if i == 0 else pl.default_decoder(dev)}")
 
     # ------------------------------------- host API stage breakdown
     # The stages of one compress + decompress of the 128 MiB hurr-quant
@@ -271,17 +393,26 @@ def main() -> None:
     cfg = core.LZSSConfig()
     raw = stage("h2d input", lambda: torch.from_numpy(data).to(dev))
     sym = stage("pack symbols", lambda: pl.pack_symbols(raw, cfg.symbol_size).reshape(-1, cfg.chunk_symbols))
-    buf, total = stage("compress_chunks (kernels I-III, zeros, header)",
+    buf, total = stage("compress_chunks (the one-launch compressor, header)",
                        lambda: pl.compress_chunks(sym, cfg, data.size))
     blob = stage("d2h container", lambda: buf[:total].cpu().numpy())
     h, nt, ps = stage("validate_container (numpy)", lambda: fmt.validate_container(blob))
     dblob = stage("h2d container + tables", lambda: (
         torch.from_numpy(blob).to(dev), torch.from_numpy(nt).to(dev), torch.from_numpy(ps).to(dev)))
-    out = stage("decompress_chunks (gathers + decoder)", lambda: pl.decompress_chunks(
+    out = stage("decompress_chunks (the one-launch decoder)", lambda: pl.decompress_chunks(
         *dblob, symbol_size=h.symbol_size, chunk_symbols=h.chunk_symbols, n_chunks=h.n_chunks))
     back = stage("unpack + d2h output", lambda: pl.unpack_symbols(out.reshape(-1), h.symbol_size).cpu().numpy())
     if not np.array_equal(back, data):
         fail("stage breakdown: round trip is not exact")
+    split_buf, _ = stage("  split path: compress_chunks (Kernels I-III, zeros, header)",
+                         lambda: pl.compress_chunks(sym, core.LZSSConfig(backend="fused-deflate"),
+                                                    data.size))
+    split_out = stage("  split path: decompress_chunks (gathers + decoder)",
+                      lambda: pl.decompress_chunks(*dblob, symbol_size=h.symbol_size,
+                                                   chunk_symbols=h.chunk_symbols,
+                                                   n_chunks=h.n_chunks, decoder="fused"))
+    if not (torch.equal(split_buf, buf) and torch.equal(split_out, out)):
+        fail("stage breakdown: the split path differs from the one-launch pair")
     for label, t in stages.items():
         print(f"[time] {card} | stage {label}: {t:.3f} ms, hurr-quant 128 MiB")
     lossy_stage_breakdown(inputs["hurr-field"], card)
@@ -302,6 +433,11 @@ def main() -> None:
     blob = lz_scatter.scatter_cuda(*args3, **kw3)
     flags, pay, nt = sections(blob[0], k1["n_tokens"], k1["payload_sizes"], s, c)
     fs_ps = torch.stack([(k1["n_tokens"] + 7) // 8, k1["payload_sizes"]])
+    kwm = dict(kw, cap=cap, sec_flags=kw3["sec_flags"])
+    mono = lz_fused.lz_fused_mono_cuda(sym[None], **kwm)
+    live = kwm["sec_flags"] + int(mono[3].sum())
+    argsm = (mono[0][:, :live].contiguous(), mono[1], mono[2])  # the container's live bytes
+    kwd = dict(symbol_size=s, chunk_symbols=c)
 
     def ms(fn, reps):
         fn()
@@ -342,6 +478,27 @@ def main() -> None:
             library=None, bytes=flag_total + pay_total + 4 * nc + 4 * pos, ops=pos,
             source="src/repro_torch/csrc/lz_decode.cu",
             replaces="src/repro/kernels/lz_decode.py:122"),
+        # the symbols in, the container (zeros included) and its tables out
+        "lz_fused_mono": dict(
+            kernel=lambda: lz_fused.lz_fused_mono_cuda(sym[None], **kwm),
+            plain=lambda: lz_fused.lz_fused_mono_plain(sym[None], **kwm), plain_reps=1,
+            library=None, bytes=4 * pos + cap + 8 * nc + 8, ops=comp,
+            source="src/repro_torch/csrc/lz_fused.cu",
+            replaces="src/repro/kernels/lz_fused.py:63"),
+        # the compact sections and the tables in, 4 bytes out per symbol
+        "lz_decode_mono": dict(
+            kernel=lambda: lz_decode_mono.lz_decode_mono_cuda(*argsm, **kwd),
+            plain=lambda: lz_decode_mono.lz_decode_mono_plain(*argsm, **kwd),
+            library=None, bytes=flag_total + pay_total + 8 * nc + 4 * pos, ops=pos,
+            source="src/repro_torch/csrc/lz_decode_mono.cu",
+            replaces="src/repro/kernels/lz_decode_mono.py:55"),
+        # the symbols in, lengths and offsets out; the walk's compares
+        "lz_match": dict(
+            kernel=lambda: lz_match.lz_match_cuda(sym, window=w, symbol_size=s),
+            plain=lambda: lz_match.lz_match_plain(sym, window=w, symbol_size=s),
+            library=None, bytes=4 * pos + 8 * pos, ops=comp,
+            source="src/repro_torch/csrc/lz_match.cu",
+            replaces="src/repro/kernels/lz_match.py:90"),
         **container_kernel_spec(stage_in),
     }
     record = []
@@ -379,8 +536,27 @@ def main() -> None:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
-LZSS_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode")
+RAW_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode", "lz_fused_mono",
+               "lz_decode_mono", "lz_match")
+# Launched by the container path with the one-launch pair as the default:
+# the compressor and, for the raw inner stage of lossy-fz at eb=0, the
+# decoder; the split decoder decodes the entropy-coded sections.
+CONTAINER_KERNELS = ("lz_fused_mono", "lz_decode_mono", "lz_decode", "byte_histogram",
+                     "huffman_gap_decode", "bitshuffle", "bitunshuffle")
 SUB = 512  # gap-array sub-block: decoded bytes per entry point
+
+
+def count_calls(owner, attr) -> list:
+    """Wrap ``owner.attr`` so that each call adds one to the returned
+    one-element list."""
+    fn, calls = getattr(owner, attr), [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return fn(*a, **k)
+
+    setattr(owner, attr, counted)
+    return calls
 
 
 def max_diff(a, b) -> int:
@@ -506,9 +682,10 @@ def _plain_container(data, cfg):
     return buf[:total].cpu().numpy()
 
 
-def container_main_path(inputs):
+def container_main_path(inputs, emit_calls):
     """Phase 5 for the container formats: the host API on deflate-full and
-    lossy-fz at real sizes, launch counts set to 0 before and read after.
+    lossy-fz at real sizes, launch counts set to 0 before and read after,
+    and no call of the plain emit tail (``emit_calls`` counts them).
     Returns (host-clock times, launch counts)."""
     import numpy as np
     import torch
@@ -531,6 +708,7 @@ def container_main_path(inputs):
     torch.cuda.synchronize()
 
     ops.reset_launch_counts()
+    emits = emit_calls[0]
     results, times = {}, {}
     for label, cfg, _ in runs:
         data = inputs[label.split()[0]]
@@ -552,8 +730,11 @@ def container_main_path(inputs):
     times[blabel] = (t1 - t0, time.perf_counter() - t1)
     launches = ops.launch_counts()
     print(f"[main] launches on the container path: {launches}")
-    if any(v < 1 for v in launches.values()):
-        fail(f"a kernel was not launched on the container path: {launches}")
+    if any(launches[k] < 1 for k in CONTAINER_KERNELS) or any(
+            launches[k] for k in ops.KERNELS if k not in CONTAINER_KERNELS):
+        fail(f"the container path did not launch exactly {CONTAINER_KERNELS}: {launches}")
+    if emit_calls[0] != emits:
+        fail(f"the container path ran the plain emit tail {emit_calls[0] - emits} times")
 
     for label, cfg, eb in runs:
         res, back = results[label]
@@ -608,7 +789,7 @@ def lossy_stage_breakdown(data, card) -> None:
         setattr(owner, attr, lambda *a, **k: run(label, lambda: fn(*a, **k)))
 
     timed(bitshuffle, "shuffle", "  bitshuffle kernel")
-    timed(pl, "lzss_many", "  inner LZSS: Kernels I-III, zeros, header")
+    timed(pl, "lzss_many", "  inner LZSS: the one-launch compressor, header")
     timed(entropy, "byte_histogram", "  histogram kernel (x2)")
     timed(entropy, "container_code_lengths", "  host code lengths (x2)")
     timed(entropy, "encode_section", "  encode sections: cumsum + 3 index_add_ (x2)")

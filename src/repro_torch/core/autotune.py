@@ -20,12 +20,17 @@ SMEM_STATIC_BYTES = 1024
 def kernel_smem_bytes(chunk_symbols: int, symbol_size: int) -> int:
     """Largest dynamic shared memory one chunk needs across the kernels.
 
-    Kernel I holds the chunk's symbols (S bytes each) plus one length byte
-    and one offset byte per position; the decoder holds two u16 copy-source
-    rows; Kernel III holds the chunk's flag bytes, rounded to words.
+    Kernel I and the match-only kernel hold the chunk's symbols (S bytes
+    each) plus one length byte and one offset byte per position; the two
+    decoders hold two u16 copy-source rows; Kernel III holds the chunk's
+    flag bytes, rounded to words.  The one-launch compressor holds Kernel
+    I's rows and, where the symbols were, the emit flags and flag words:
+    max(C * S, C + 4 * ceil(C / 32)) + 2 * C, never more than the largest
+    of the others (3.125 C against 4 C at S = 1).
     """
     c, s = chunk_symbols, symbol_size
-    return max(c * s + 2 * c, 4 * c, 4 * -(-c // 32))
+    words = 4 * -(-c // 32)
+    return max(c * s + 2 * c, 4 * c, words, max(c * s, c + words) + 2 * c)
 
 
 def validate_block_geometry(

@@ -8,14 +8,22 @@ The paper's pipeline is
 A compressor backend provides ``kernel1(symbols, cfg)`` — (N, C) int32
 symbols to the per-position / per-chunk dict the emit tail needs — and may
 own the Kernel II/III tail through an optional ``emit`` method; the default
-tail is ``emit_torch``.  A decoder backend maps per-chunk aligned sections
-to symbols through ``decode``.  Registered entries:
+tail is ``emit_torch``.  A backend may instead own a whole batch of raw
+containers through an optional ``compress_many`` method.  A decoder backend
+maps per-chunk aligned sections to symbols through ``decode``, and may own
+a whole batch of raw containers through an optional ``decode_many``.
+Registered entries:
 
   compressors  ``torch``          plain PyTorch: matching, the
                                   pointer-doubling selector, prefix sums
                ``torch-scan``     the same with the paper's sequential
                                   selection walk (the oracle)
+               ``cuda-match``     the CUDA match-only kernel, then the plain
+                                  selector, prefix sums and ``emit_torch``
+               ``fused``          the CUDA Kernel I, then ``emit_torch``
                ``fused-deflate``  the CUDA Kernel I -> Kernel II -> Kernel III
+               ``fused-mono``     Kernels I + II + III in one CUDA launch for
+                                  the whole batch (``compress_many``)
                ``deflate-full``   the device's LZSS + canonical Huffman over
                                   both sections (method-1 containers,
                                   core/entropy.py)
@@ -25,13 +33,17 @@ to symbols through ``decode``.  Registered entries:
   decoders     ``torch-parallel`` plain PyTorch parallel decoder
                ``torch-scan``     sequential token walk (the oracle)
                ``fused``          plain ``gather_section`` + the CUDA decoder
+               ``fused-mono``     the CUDA decoder reading the sections in
+                                  place, one launch for the whole batch
+                                  (``decode_many``)
                ``deflate-full``   gap-array Huffman decode + the device's
                                   LZSS decoder (method-1 containers only)
                ``lossy-fz``       inner decode + unshuffle + dequantization
                                   (method-2 containers only)
 
-``"auto"`` resolves by device: the CUDA kernels on ``cuda`` and the plain
-``torch`` / ``torch-parallel`` entries on ``cpu``.  On CPU tensors the
+``"auto"`` resolves by device: the one-launch ``fused-mono`` pair on
+``cuda``, as the reference package's default on an accelerator, and the
+plain ``torch`` / ``torch-parallel`` entries on ``cpu``.  On CPU tensors the
 kernel wrappers run their plain versions, so the ``fused*`` entries also
 work there.  Every raw entry produces the same container bytes and
 symbols, and the bytes equal the reference package's method-0 containers;
@@ -161,16 +173,17 @@ class LZSSConfig:
         return encode.min_match_length(self.symbol_size)
 
 
-# Reference-package registry keys -> the port's.  The raw, byte-identical
-# family differs only in how it executes, so it maps to "auto"; the
-# sequential oracles and the two container formats map to theirs.
+# Reference-package registry keys -> the port's.  The kernel entries map to
+# their namesakes (``pallas-match`` to ``cuda-match``, named for its
+# kernel); the plain XLA entries map to "auto", the sequential oracles and
+# the two container formats to theirs.
 _JAX_BACKENDS = {
-    "xla": "auto", "pallas-match": "auto", "fused": "auto",
-    "fused-deflate": "auto", "fused-mono": "auto", "auto": "auto",
+    "xla": "auto", "pallas-match": "cuda-match", "fused": "fused",
+    "fused-deflate": "fused-deflate", "fused-mono": "fused-mono", "auto": "auto",
     "xla-scan": "torch-scan", "deflate-full": "deflate-full", "lossy-fz": "lossy-fz",
 }
 _JAX_DECODERS = {
-    "xla-parallel": "auto", "fused": "auto", "fused-mono": "auto",
+    "xla-parallel": "auto", "fused": "fused", "fused-mono": "fused-mono",
     "auto": "auto", "xla-scan": "torch-scan", "deflate-full": "deflate-full",
     "lossy-fz": "lossy-fz",
 }
@@ -236,7 +249,10 @@ class CompressorBackend(Protocol):
     A backend may define ``emit(symbols, k1, cfg, orig_bytes)`` for a batch
     of (B, nc, C) symbols and the dict reshaped to (B, nc, ...), returning
     ``(blobs (B, cap) uint8, totals list of B ints)``; ``emit_torch`` is
-    the default.  A backend that owns a whole container format instead
+    the default.  A backend may instead define ``compress_many(symbols,
+    cfg, orig_bytes)`` for the whole (B, nc, C) batch with the same result;
+    ``lzss_many`` then calls it in place of the two seams.  A backend that
+    owns a whole container format instead
     defines ``compress(symbols, cfg, orig_bytes)`` for one (nc, C) buffer,
     returning ``(buffer (cap,) uint8, total bytes)``, and
     ``container_method``, the method byte its containers carry.
@@ -262,8 +278,8 @@ def register_backend(backend, *, overwrite: bool = False):
 
 
 def default_backend(device) -> str:
-    """The CUDA kernels on a CUDA device, plain PyTorch on the CPU."""
-    return "fused-deflate" if torch.device(device).type == "cuda" else "torch"
+    """The one-launch compressor on a CUDA device, plain PyTorch on the CPU."""
+    return "fused-mono" if torch.device(device).type == "cuda" else "torch"
 
 
 def resolve_backend(name: str, device) -> str:
@@ -292,8 +308,11 @@ class TorchBackend:
     name = "torch"
     selector = staticmethod(encode.select_tokens_doubling)
 
+    def matches(self, symbols, cfg):
+        return match.find_matches(symbols, window=cfg.window)
+
     def kernel1(self, symbols, cfg):
-        lengths, offsets = match.find_matches(symbols, window=cfg.window)
+        lengths, offsets = self.matches(symbols, cfg)
         emitted = self.selector(lengths, min_match=cfg.min_match)
         fields = encode.token_fields(
             lengths, emitted, min_match=cfg.min_match, symbol_size=cfg.symbol_size
@@ -308,10 +327,23 @@ class TorchScanBackend(TorchBackend):
     selector = staticmethod(encode.select_tokens_scan)
 
 
-class FusedDeflateBackend:
-    """The CUDA path: Kernel I, then Kernel II and Kernel III."""
+class CudaMatchBackend(TorchBackend):
+    """The CUDA match-only kernel, then the plain selector, prefix sums and
+    ``emit_torch``."""
 
-    name = "fused-deflate"
+    name = "cuda-match"
+
+    def matches(self, symbols, cfg):
+        from repro_torch.kernels import ops
+
+        return ops.lz_match(symbols, window=cfg.window, symbol_size=cfg.symbol_size)
+
+
+class FusedBackend:
+    """The CUDA Kernel I (matching, selection and the local prefix sum in
+    one launch), then the plain ``emit_torch`` tail."""
+
+    name = "fused"
 
     def kernel1(self, symbols, cfg):
         from repro_torch.kernels import ops
@@ -321,6 +353,12 @@ class FusedDeflateBackend:
             symbol_size=cfg.symbol_size,
         )
         return dict(out, use_match=out["emitted"] & (out["lengths"] >= cfg.min_match))
+
+
+class FusedDeflateBackend(FusedBackend):
+    """The split CUDA path: Kernel I, then Kernel II and Kernel III."""
+
+    name = "fused-deflate"
 
     def emit(self, symbols, k1, cfg, orig_bytes):
         from repro_torch.kernels import ops
@@ -339,6 +377,31 @@ class FusedDeflateBackend:
         return _finalize_container(
             blobs, cfg, orig_bytes, nc=nc, c=c, n_tokens=k1["n_tokens"],
             payload_sizes=k1["payload_sizes"],
+            flag_totals=[t[0] for t in totals], pay_totals=[t[1] for t in totals],
+        )
+
+
+class FusedMonoBackend(FusedBackend):
+    """Kernels I + II + III in one CUDA launch for a whole batch
+    (kernels/lz_fused.py), through the ``compress_many`` hook; the headers
+    are finalised after the one device-to-host read of the section totals.
+    ``kernel1`` is the split Kernel I, for callers that want the match
+    metadata alone."""
+
+    name = "fused-mono"
+
+    def compress_many(self, symbols, cfg, orig_bytes):
+        from repro_torch.kernels import ops
+
+        b, nc, c = symbols.shape
+        s = cfg.symbol_size
+        blobs, n_tokens, payload_sizes, totals = ops.lz_fused_mono(
+            symbols, window=cfg.window, min_match=cfg.min_match, symbol_size=s,
+            cap=fmt.max_compressed_bytes(nc * c * s, s, c), sec_flags=fmt.HEADER_BYTES + 8 * nc,
+        )
+        totals = totals.cpu().tolist()  # the one device-to-host read
+        return _finalize_container(
+            blobs, cfg, orig_bytes, nc=nc, c=c, n_tokens=n_tokens, payload_sizes=payload_sizes,
             flag_totals=[t[0] for t in totals], pay_totals=[t[1] for t in totals],
         )
 
@@ -372,7 +435,10 @@ class LossyFzBackend:
 
 register_backend(TorchBackend())
 register_backend(TorchScanBackend())
+register_backend(CudaMatchBackend())
+register_backend(FusedBackend())
 register_backend(FusedDeflateBackend())
+register_backend(FusedMonoBackend())
 register_backend(EntropyBackend())
 register_backend(LossyFzBackend())
 
@@ -402,7 +468,12 @@ class DecoderBackend(Protocol):
 
     ``decode`` maps (N, C//8) flag bytes, (N, C*S) payload bytes and (N,)
     token counts (the tensors ``deflate.gather_section`` rebuilds from a
-    container) to (N, C) int32 symbols.  A decoder that owns a whole
+    container) to (N, C) int32 symbols.  A decoder may define
+    ``decode_many(blobs, n_tokens, payload_sizes, *, symbol_size,
+    chunk_symbols, n_chunks)`` for a batch of raw containers, (B, L) uint8
+    blobs and (B, nc) tables -> (B, nc, C) int32, which
+    ``decompress_many_chunks`` calls in place of the section gathers.  A
+    decoder that owns a whole
     container format also defines ``decode_blob(blob, header)`` — a flat
     uint8 tensor holding the container's live bytes and its host-parsed
     ``format.Header`` -> (nc, C) int32 symbols — and ``container_method``.
@@ -429,8 +500,8 @@ def register_decoder(decoder, *, overwrite: bool = False):
 
 
 def default_decoder(device) -> str:
-    """The CUDA decoder on a CUDA device, plain PyTorch on the CPU."""
-    return "fused" if torch.device(device).type == "cuda" else "torch-parallel"
+    """The one-launch decoder on a CUDA device, plain PyTorch on the CPU."""
+    return "fused-mono" if torch.device(device).type == "cuda" else "torch-parallel"
 
 
 def resolve_decoder(name: str, device) -> str:
@@ -483,6 +554,29 @@ class FusedDecoder:
         return ops.lz_decode(flag_bytes, payload, n_tokens, symbol_size=symbol_size)
 
 
+class FusedMonoDecoder(FusedDecoder):
+    """The decoder in one CUDA launch for a whole batch of raw containers
+    (kernels/lz_decode_mono.py): each chunk's sections are read in place
+    from the blob, so the section gathers drop out.  It has no
+    ``decode_blob`` hook: batches stay one launch.  The section-level
+    ``decode`` (sections already gathered) is the split CUDA decoder."""
+
+    name = "fused-mono"
+
+    def decode_many(self, blobs, n_tokens, payload_sizes, *, symbol_size, chunk_symbols,
+                    n_chunks):
+        from repro_torch.kernels import ops
+
+        if tuple(n_tokens.shape) != (blobs.shape[0], n_chunks):
+            raise ValueError(
+                f"tables of shape {tuple(n_tokens.shape)} for {blobs.shape[0]} containers "
+                f"of {n_chunks} chunks"
+            )
+        return ops.lz_decode_mono(
+            blobs, n_tokens, payload_sizes, symbol_size=symbol_size, chunk_symbols=chunk_symbols
+        )
+
+
 class EntropyDecoder:
     """Method-1 containers: gap-array Huffman decode of both sections, then
     the device's LZSS decoder.  The section-level ``decode`` (sections
@@ -533,6 +627,7 @@ class LossyFzDecoder:
 register_decoder(TorchParallelDecoder())
 register_decoder(TorchScanDecoder())
 register_decoder(FusedDecoder())
+register_decoder(FusedMonoDecoder())
 register_decoder(EntropyDecoder())
 register_decoder(LossyFzDecoder())
 
@@ -618,9 +713,11 @@ def emit_torch(symbols, k1, cfg, orig_bytes):
 
 
 def lzss_many(backend, symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes):
-    """Raw method-0 containers of (B, nc, C) symbols through ``backend``'s
-    Kernel-I and emit seams -> ((B, cap) uint8 blobs, list of B totals).
-    Kernel I runs over all B * nc chunks at once."""
+    """Raw method-0 containers of (B, nc, C) symbols through ``backend`` ->
+    ((B, cap) uint8 blobs, list of B totals): its ``compress_many`` hook
+    when it has one, else its Kernel-I and emit seams, Kernel I over all
+    B * nc chunks at once.  The raw stages of the two container formats
+    come here too."""
     b, nc, c = symbols.shape
     s = cfg.symbol_size
     if fmt.max_compressed_bytes(nc * c * s, s, c) >= 2**31:
@@ -628,6 +725,9 @@ def lzss_many(backend, symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes):
             f"{nc * c * s} bytes per buffer is over the int32 section offsets; "
             f"split the input"
         )
+    many = getattr(backend, "compress_many", None)
+    if many is not None:
+        return many(symbols, cfg, list(orig_bytes))
     k1 = backend.kernel1(symbols.reshape(b * nc, c), cfg)
     k1 = {k: v.reshape(b, nc, *v.shape[1:]) for k, v in k1.items()}
     emit = getattr(backend, "emit", emit_torch)
@@ -641,7 +741,8 @@ def compress_many_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None
     zeros beyond.  ``orig_bytes`` (B host ints) are the true pre-padding
     byte counts for the headers; by default the padded size ``nc * C * S``.
     A backend with a ``compress`` hook builds its containers one buffer at
-    a time; the raw backends run ``lzss_many``.
+    a time; the raw backends run ``lzss_many`` (one launch for the batch
+    through a ``compress_many`` hook).
     """
     if symbols.dim() != 3 or symbols.shape[2] != cfg.chunk_symbols:
         raise ValueError(
@@ -672,11 +773,15 @@ def decompress_many_chunks(blobs, n_tokens, payload_sizes, *, symbol_size,
 
     ``blobs`` need only cover each container's live bytes: the section
     gathers are clipped and masked.  The decoder runs once over all B * nc
-    chunks.
+    chunks: through its ``decode_many`` hook when it has one, else on the
+    gathered sections.
     """
     c, s, nc = chunk_symbols, symbol_size, n_chunks
     b = blobs.shape[0]
     dec = get_decoder(decoder, blobs.device)
+    many = getattr(dec, "decode_many", None)
+    if many is not None:
+        return many(blobs, n_tokens, payload_sizes, symbol_size=s, chunk_symbols=c, n_chunks=nc)
     nt = n_tokens.to(torch.int64)
     ps = payload_sizes.to(torch.int64)
     fs = (nt + 7) // 8

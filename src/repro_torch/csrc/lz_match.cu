@@ -1,42 +1,42 @@
 // GPULZ Kernel I for Hopper: matching, greedy token selection and the
-// in-chunk (local) prefix sum of token sizes, one thread block per chunk.
+// in-chunk (local) prefix sum of token sizes, one thread block per chunk;
+// and the match-only kernel, the window walk alone.
 //
-// Replaces the TPU kernel src/repro/kernels/lz_match.py:_fused_kernel
-// (launched by lz_kernel1_pallas).  The TPU layout (chunks on sublanes,
-// lane rolls, capped run-length doubling over whole rows) is not carried
-// over; this is the paper's own CUDA shape (§3.3.2):
+// Kernel I replaces the TPU kernel src/repro/kernels/lz_match.py:_fused_kernel
+// (launched by lz_kernel1_pallas); the match-only kernel replaces
+// src/repro/kernels/lz_match.py:_match_kernel (launched by lz_match_pallas).
+// The TPU layout (chunks on sublanes, lane rolls, capped run-length
+// doubling over whole rows) is not carried over; this is the paper's own
+// CUDA shape (§3.3.2), with the per-chunk steps in kernel1.cuh:
 //
 //   * the chunk's symbols sit in shared memory at S bytes each, and one
 //     length byte and one offset byte per position beside them, so
 //     C * (S + 2) bytes fit in a block's 227 KB at every C the port
 //     accepts (core/autotune.py);
 //   * each thread takes positions i, i + blockDim, ... and walks the window
-//     far to near (d = min(i, W) .. 1) comparing symbols directly.  A
-//     candidate at offset d is capped at min(d, 255, C - i), a cap that
-//     shrinks with d, so the walk stops as soon as the best length reaches
-//     it; strict improvement keeps ties at the larger offset, which is the
-//     reference's key max(len * (W + 1) + d);
+//     far to near (gplz::best_match);
 //   * one thread walks the lengths to select tokens (the paper's encode
 //     thread); the emitted flags reuse the symbol bytes, which are dead by
 //     then;
 //   * the block scans token sizes tile by tile for local_off, and sums
 //     them for payload_sizes and n_tokens.
 //
-// Bound on the H100: integer compares in the window walk, at most
-// min(i, W) candidate offsets per position plus the run lengths of the
-// matches found; the bytes moved (4 bytes in, 13 out per position) are
-// small beside them at W = 128.  The early exit makes runs of equal
-// symbols cheap (the first, farthest offset already reaches the cap).
+// Bound on the H100, both kernels: integer compares in the window walk, at
+// most min(i, W) candidate offsets per position plus the run lengths of
+// the matches found; the bytes moved (4 bytes in, 13 out per position for
+// Kernel I, 8 for the match-only kernel) are small beside them at W = 128.
+// The early exit makes runs of equal symbols cheap (the first, farthest
+// offset already reaches the cap).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
+#include "kernel1.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxLen = 255;
 
 template <typename Sym>
 __global__ void __launch_bounds__(kThreads)
@@ -51,50 +51,26 @@ kernel1(const int32_t* __restrict__ symbols, int C, int W, int min_match, int S,
   uint8_t* soff = slen + C;
   const long long base = static_cast<long long>(blockIdx.x) * C;
 
-  for (int i = threadIdx.x; i < C; i += blockDim.x)
-    sym[i] = static_cast<Sym>(static_cast<uint32_t>(symbols[base + i]));
+  gplz::load_chunk(symbols + base, C, sym);
   __syncthreads();
 
   for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    const int rem = C - i;
-    const Sym xi = sym[i];
-    int best_len = 0, best_off = 0;
-    for (int d = min(i, W); d >= 1; --d) {
-      const int cap = min(min(d, kMaxLen), rem);
-      if (cap <= best_len) break;
-      if (sym[i - d] != xi) continue;
-      int l = 1;
-      while (l < cap && sym[i + l] == sym[i - d + l]) ++l;
-      if (l > best_len) {
-        best_len = l;
-        best_off = d;
-      }
-    }
-    slen[i] = static_cast<uint8_t>(best_len);
-    soff[i] = static_cast<uint8_t>(best_off);
-    lengths[base + i] = best_len;
-    offsets[base + i] = best_off;
+    const int2 m = gplz::best_match(sym, i, C, W);
+    slen[i] = static_cast<uint8_t>(m.x);
+    soff[i] = static_cast<uint8_t>(m.y);
+    lengths[base + i] = m.x;
+    offsets[base + i] = m.y;
   }
   __syncthreads();
 
   uint8_t* emit = smem;  // the symbols are dead: reuse their first C bytes
-  for (int i = threadIdx.x; i < C; i += blockDim.x) emit[i] = 0;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int pos = 0;
-    while (pos < C) {
-      emit[pos] = 1;
-      const int l = slen[pos];
-      pos += l >= min_match ? l : 1;
-    }
-  }
-  __syncthreads();
+  gplz::select_tokens(slen, emit, C, min_match);
 
   int carry = 0, toks = 0;
   for (int tile = 0; tile < C; tile += blockDim.x) {
     const int i = tile + threadIdx.x;
     const int e = i < C ? emit[i] : 0;
-    const int size = e ? (slen[i] >= min_match ? 2 : S) : 0;
+    const int size = gplz::token_size(e, e ? slen[i] : 0, min_match, S);
     int total;
     const int excl = carry + block_excl_scan(size, &total, warp_sums);
     if (i < C) {
@@ -112,6 +88,23 @@ kernel1(const int32_t* __restrict__ symbols, int C, int W, int min_match, int S,
   }
 }
 
+// The window walk alone: lengths and offsets of every position.
+template <typename Sym>
+__global__ void __launch_bounds__(kThreads)
+match_only(const int32_t* __restrict__ symbols, int C, int W, int32_t* __restrict__ lengths,
+           int32_t* __restrict__ offsets) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Sym* sym = reinterpret_cast<Sym*>(smem);
+  const long long base = static_cast<long long>(blockIdx.x) * C;
+  gplz::load_chunk(symbols + base, C, sym);
+  __syncthreads();
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {
+    const int2 m = gplz::best_match(sym, i, C, W);
+    lengths[base + i] = m.x;
+    offsets[base + i] = m.y;
+  }
+}
+
 template <typename Sym>
 cudaError_t launch(const void* symbols, int nc, int C, int S, int W, int min_match,
                    void* lengths, void* offsets, void* emitted, void* local_off,
@@ -124,6 +117,18 @@ cudaError_t launch(const void* symbols, int nc, int C, int S, int W, int min_mat
       static_cast<int32_t*>(lengths), static_cast<int32_t*>(offsets),
       static_cast<uint8_t*>(emitted), static_cast<int32_t*>(local_off),
       static_cast<int32_t*>(payload_sizes), static_cast<int32_t*>(n_tokens));
+  return cudaGetLastError();
+}
+
+template <typename Sym>
+cudaError_t launch_match(const void* symbols, int nc, int C, int W, void* lengths,
+                         void* offsets, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(C) * sizeof(Sym);
+  cudaError_t err = allow_smem(match_only<Sym>, smem);
+  if (err != cudaSuccess) return err;
+  match_only<Sym><<<nc, kThreads, smem, stream>>>(
+      static_cast<const int32_t*>(symbols), C, W, static_cast<int32_t*>(lengths),
+      static_cast<int32_t*>(offsets));
   return cudaGetLastError();
 }
 
@@ -147,6 +152,23 @@ extern "C" int lz_kernel1_launch(const void* symbols, int nc, int C, int S, int 
     case 4:
       return launch<uint32_t>(symbols, nc, C, S, W, min_match, lengths, offsets,
                               emitted, local_off, payload_sizes, n_tokens, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// (nc, C) int32 symbols -> lengths, offsets (nc, C) int32.
+// Returns a cudaError_t code (0 on success).
+extern "C" int lz_match_launch(const void* symbols, int nc, int C, int S, int W, void* lengths,
+                               void* offsets, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (S) {
+    case 1:
+      return launch_match<uint8_t>(symbols, nc, C, W, lengths, offsets, st);
+    case 2:
+      return launch_match<uint16_t>(symbols, nc, C, W, lengths, offsets, st);
+    case 4:
+      return launch_match<uint32_t>(symbols, nc, C, W, lengths, offsets, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

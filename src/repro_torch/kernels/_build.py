@@ -21,7 +21,10 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("lz_match", "lz_scatter", "lz_decode", "lz_entropy", "lz_bitshuffle")
+SOURCES = (
+    "lz_match", "lz_scatter", "lz_decode", "lz_entropy", "lz_bitshuffle", "lz_fused",
+    "lz_decode_mono",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,6 +37,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "lz_match": {
         "lz_kernel1_launch": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        "lz_match_launch": [_P, _I, _I, _I, _I, _P, _P, _P],
     },
     "lz_scatter": {
         "lz_global_offsets_launch": [_P, _P, _I, _I, _P, _P, _P, _P],
@@ -49,6 +53,14 @@ SIGNATURES = {
     "lz_bitshuffle": {
         "lz_bitshuffle_launch": [_P, _I, _P, _P],
         "lz_bitunshuffle_launch": [_P, _I, _P, _P],
+    },
+    "lz_fused": {
+        "lz_fused_mono_launch": [
+            _P, _I, _I, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        ],
+    },
+    "lz_decode_mono": {
+        "lz_decode_mono_launch": [_P, _L, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     },
 }
 

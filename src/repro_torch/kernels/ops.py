@@ -11,12 +11,15 @@ from __future__ import annotations
 
 from repro_torch.kernels import lz_bitshuffle as _bshuf
 from repro_torch.kernels import lz_decode as _dec
+from repro_torch.kernels import lz_decode_mono as _dmono
 from repro_torch.kernels import lz_entropy as _ent
+from repro_torch.kernels import lz_fused as _fused
 from repro_torch.kernels import lz_match as _match
 from repro_torch.kernels import lz_scatter as _scat
 
 KERNELS = (
     "lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode",
+    "lz_fused_mono", "lz_decode_mono", "lz_match",
     "byte_histogram", "huffman_gap_decode", "bitshuffle", "bitunshuffle",
 )
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -80,6 +83,39 @@ def lz_decode(flag_bytes, payload, n_tokens, *, symbol_size):
         return _dec.lz_decode_plain(flag_bytes, payload, n_tokens, symbol_size=symbol_size)
     out = _dec.lz_decode_cuda(flag_bytes, payload, n_tokens, symbol_size=symbol_size)
     LAUNCHES["lz_decode"] += 1
+    return out
+
+
+def lz_fused_mono(symbols, *, window, min_match, symbol_size, cap, sec_flags):
+    """Kernels I+II+III in one launch: (B, nc, C) int32 symbols -> ((B, cap)
+    uint8 blobs holding the sections, (B, nc) n_tokens, (B, nc)
+    payload_sizes, (B, 2) totals)."""
+    kw = dict(window=window, min_match=min_match, symbol_size=symbol_size, cap=cap,
+              sec_flags=sec_flags)
+    if _on_cpu(symbols):
+        return _fused.lz_fused_mono_plain(symbols, **kw)
+    out = _fused.lz_fused_mono_cuda(symbols, **kw)
+    LAUNCHES["lz_fused_mono"] += 1
+    return out
+
+
+def lz_decode_mono(blobs, n_tokens, payload_sizes, *, symbol_size, chunk_symbols):
+    """The decoder in one launch: (B, L) uint8 container blobs + (B, nc) A/B
+    tables -> (B, nc, C) int32 symbols."""
+    kw = dict(symbol_size=symbol_size, chunk_symbols=chunk_symbols)
+    if _on_cpu(blobs):
+        return _dmono.lz_decode_mono_plain(blobs, n_tokens, payload_sizes, **kw)
+    out = _dmono.lz_decode_mono_cuda(blobs, n_tokens, payload_sizes, **kw)
+    LAUNCHES["lz_decode_mono"] += 1
+    return out
+
+
+def lz_match(symbols, *, window, symbol_size):
+    """Matching only: (N, C) int32 symbols -> (lengths, offsets) (N, C) int32."""
+    if _on_cpu(symbols):
+        return _match.lz_match_plain(symbols, window=window, symbol_size=symbol_size)
+    out = _match.lz_match_cuda(symbols, window=window, symbol_size=symbol_size)
+    LAUNCHES["lz_match"] += 1
     return out
 
 

@@ -228,8 +228,8 @@ def test_config_rejects_chunks_over_shared_memory():
 
 
 @pytest.mark.parametrize("backend,want", [
-    ("xla", "auto"), ("pallas-match", "auto"), ("fused", "auto"),
-    ("fused-deflate", "auto"), ("fused-mono", "auto"), ("xla-scan", "torch-scan"),
+    ("xla", "auto"), ("pallas-match", "cuda-match"), ("fused", "fused"),
+    ("fused-deflate", "fused-deflate"), ("fused-mono", "fused-mono"), ("xla-scan", "torch-scan"),
 ])
 def test_config_from_jax_maps_raw_family(backend, want):
     j = jpipe.LZSSConfig(symbol_size=4, window=77, chunk_symbols=256, backend=backend,
@@ -252,14 +252,15 @@ def test_config_from_jax_rejects_queued_entries(fields, item):
 
 def test_auto_resolves_by_device():
     assert tpipe.resolve_backend("auto", "cpu") == "torch"
-    assert tpipe.resolve_backend("auto", "cuda") == "fused-deflate"
+    assert tpipe.resolve_backend("auto", "cuda") == "fused-mono"
     assert tpipe.resolve_decoder("auto", "cpu") == "torch-parallel"
-    assert tpipe.resolve_decoder("auto", "cuda") == "fused"
+    assert tpipe.resolve_decoder("auto", "cuda") == "fused-mono"
     assert tpipe.resolve_decoder("scan", "cpu") == "torch-scan"
     assert tcore.available_backends() == [
-        "deflate-full", "fused-deflate", "lossy-fz", "torch", "torch-scan"]
+        "cuda-match", "deflate-full", "fused", "fused-deflate", "fused-mono", "lossy-fz",
+        "torch", "torch-scan"]
     assert tcore.available_decoders() == [
-        "deflate-full", "fused", "lossy-fz", "torch-parallel", "torch-scan"]
+        "deflate-full", "fused", "fused-mono", "lossy-fz", "torch-parallel", "torch-scan"]
 
 
 def test_host_api_needs_a_card_unless_cpu_is_asked_for(monkeypatch):

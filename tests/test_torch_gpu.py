@@ -16,7 +16,7 @@ import torch
 
 from repro_torch import core
 from repro_torch.core import entropy, format as fmt, pipeline as pl
-from repro_torch.kernels import lz_bitshuffle, lz_entropy, ops
+from repro_torch.kernels import lz_bitshuffle, lz_decode_mono, lz_entropy, lz_fused, lz_match, ops
 
 GEOMETRIES = [(1, 32, 64), (2, 128, 128), (4, 255, 64), (4, 128, 2048), (2, 255, 32768)]
 LZSS_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode")
@@ -43,7 +43,8 @@ def test_kernel_path_equals_plain_path(cuda, s, w, c):
     nc = 3
     sym = _symbols(s, nc, c, seed=c).to(cuda)
     ops.reset_launch_counts()
-    blob, total = pl.compress_chunks(sym, core.LZSSConfig(symbol_size=s, window=w, chunk_symbols=c))
+    blob, total = pl.compress_chunks(
+        sym, core.LZSSConfig(symbol_size=s, window=w, chunk_symbols=c, backend="fused-deflate"))
     plain, plain_total = pl.compress_chunks(
         sym, core.LZSSConfig(symbol_size=s, window=w, chunk_symbols=c, backend="torch")
     )
@@ -60,13 +61,79 @@ def test_kernel_path_equals_plain_path(cuda, s, w, c):
 
 @pytest.mark.gpu
 def test_host_api_defaults_to_the_card(cuda):
+    """The default on the card is the one-launch pair: one launch per
+    compress and per decompress, and no split kernel."""
     data = np.random.default_rng(0).integers(0, 4, 100_000).astype(np.uint8)
     ops.reset_launch_counts()
     res = core.compress(data)
     assert np.array_equal(core.decompress(res.data), data)
     counts = ops.launch_counts()
-    assert all(counts[k] == 1 for k in LZSS_KERNELS)
+    assert counts == dict(dict.fromkeys(ops.KERNELS, 0), lz_fused_mono=1, lz_decode_mono=1)
     assert np.array_equal(res.data, core.compress(data, device="cpu").data)
+
+
+# ----------------------------------- the one-launch pair and the matcher
+
+# C=2048 at S in {1, 2, 4}, C=32768, and the largest chunks the shared-memory
+# fit accepts at S=4 and S=1
+MONO_GEOMETRIES = [(1, 32, 2048), (2, 128, 2048), (4, 255, 2048), (2, 128, 32768),
+                   (4, 128, 32768), (4, 128, 38568), (1, 32, 57856)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,w,c", MONO_GEOMETRIES)
+def test_mono_kernels_equal_plain_and_split(cuda, s, w, c):
+    """The one-launch compressor equals its plain version and the split
+    kernels' blob on a ragged-looking batch of 3 buffers; the one-launch
+    decoder equals its plain version on blobs that hold only their live
+    bytes, and inverts the compressor."""
+    nc = 3
+    sym = torch.stack([_symbols(s, nc, c, seed=c + k) for k in range(3)]).to(cuda)
+    mm = core.LZSSConfig(symbol_size=s, chunk_symbols=c).min_match
+    kw = dict(window=w, min_match=mm, symbol_size=s,
+              cap=fmt.max_compressed_bytes(nc * c * s, s, c), sec_flags=fmt.HEADER_BYTES + 8 * nc)
+    got = lz_fused.lz_fused_mono_cuda(sym, **kw)
+    want = lz_fused.lz_fused_mono_plain(sym, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    cfg = core.LZSSConfig(symbol_size=s, window=w, chunk_symbols=c, backend="fused-deflate")
+    split, totals = pl.compress_many_chunks(sym, cfg)
+    mono, mono_totals = pl.compress_many_chunks(
+        sym, core.LZSSConfig(symbol_size=s, window=w, chunk_symbols=c, backend="fused-mono"))
+    assert mono_totals == totals and torch.equal(mono, split)
+    width = max(totals)  # each row holds only its live bytes, zeros past them
+    blobs = torch.stack([torch.nn.functional.pad(mono[i, : totals[i]], (0, width - totals[i]))
+                         for i in range(3)])
+    dargs = (blobs, got[1], got[2])
+    d = lz_decode_mono.lz_decode_mono_cuda(*dargs, symbol_size=s, chunk_symbols=c)
+    assert torch.equal(d, lz_decode_mono.lz_decode_mono_plain(*dargs, symbol_size=s,
+                                                                 chunk_symbols=c))
+    assert torch.equal(d, sym.to(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,w", [(1, 32), (2, 128), (4, 255)])
+def test_match_kernel_equals_plain(cuda, s, w):
+    sym = _symbols(s, 8, 2048, seed=w).to(cuda)
+    got = lz_match.lz_match_cuda(sym, window=w, symbol_size=s)
+    want = lz_match.lz_match_plain(sym, window=w, symbol_size=s)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_one_launch_per_batch_call(cuda):
+    rng = np.random.default_rng(4)
+    arrays = [rng.integers(0, 3, n).astype(np.uint8) for n in (50_000, 7_000, 33_333)]
+    ops.reset_launch_counts()
+    many = core.compress_many(arrays)
+    back = core.decompress_many(many)
+    assert all(np.array_equal(o, a) for o, a in zip(back, arrays))
+    counts = ops.launch_counts()
+    assert counts == dict(dict.fromkeys(ops.KERNELS, 0), lz_fused_mono=1, lz_decode_mono=1)
+    ops.reset_launch_counts()
+    res = core.compress(arrays[0], core.LZSSConfig(backend="cuda-match"))
+    assert np.array_equal(res.data, many[0].data)
+    assert ops.launch_counts()["lz_match"] == 1
 
 
 # ------------------------------------------------ entropy and lossy stages

@@ -139,7 +139,12 @@ def test_decoder_plain_equals_reference(s, w, c):
 def test_plain_versions_are_not_counted_as_launches():
     ops.reset_launch_counts()
     sym = _symbols(2, 2, 64, seed=1)
-    tpipe.compress_chunks(sym, tpipe.LZSSConfig(chunk_symbols=64, backend="fused-deflate"))
+    for backend in ("fused-deflate", "fused-mono", "fused", "cuda-match"):
+        blob, total = tpipe.compress_chunks(sym, tpipe.LZSSConfig(chunk_symbols=64,
+                                                                 backend=backend))
+    _, nt, ps = jfmt.validate_container(blob[:total].numpy())
+    tpipe.decompress_chunks(blob, torch.from_numpy(nt), torch.from_numpy(ps), symbol_size=2,
+                            chunk_symbols=64, n_chunks=2, decoder="fused-mono")
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
@@ -149,6 +154,13 @@ def test_wrappers_refuse_other_devices():
         ops.lz_kernel1(meta, window=8, min_match=2, symbol_size=2)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.lz_decode(meta.to(torch.uint8), meta, meta[:, 0], symbol_size=2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.lz_match(meta, window=8, symbol_size=2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.lz_fused_mono(meta[None], window=8, min_match=2, symbol_size=2, cap=4096,
+                          sec_flags=48)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.lz_decode_mono(meta.to(torch.uint8), meta, meta, symbol_size=2, chunk_symbols=64)
     flat = torch.empty(1024, dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.byte_histogram(flat, 0, 10)
@@ -237,20 +249,38 @@ def test_bitshuffle_plain_equals_reference(nblocks):
 
 def test_bindings_match_the_cuda_sources():
     """Every ctypes signature names an extern "C" entry point of its source
-    with as many parameters as it declares."""
+    with as many parameters as it declares, each of the declared C type
+    (a pointer, an int or a long long), and every header a source includes
+    is in csrc/."""
+    ctype = {"void*": _build._P, "int": _build._I, "long long": _build._L}
     for name, fns in _build.SIGNATURES.items():
         src = (_build.CSRC / f"{name}.cu").read_text()
         for fn, argtypes in fns.items():
             m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
             assert m, fn
-            assert len(m.group(1).split(",")) == len(argtypes), fn
+            params = [" ".join(p.split()) for p in m.group(1).split(",")]
+            assert len(params) == len(argtypes), fn
+            for p, t in zip(params, argtypes):
+                decl = re.sub(r"^const |\s*\w+$", "", p).replace(" *", "*")
+                assert ctype[decl] is t, (fn, p)
+        for header in re.findall(r'#include "([^"]+)"', src):
+            assert (_build.CSRC / header).is_file(), (name, header)
     assert sorted(_build.SIGNATURES) == sorted(_build.SOURCES)
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
+    assert len(_build.SOURCES) == 7 and len(ops.KERNELS) == 11
 
 
 @pytest.mark.parametrize("s,c,fits", [(4, 32768, True), (1, 32768, True),
-                                      (2, 58000, False), (4, 40000, False)])
+                                      (2, 58000, False), (4, 40000, False),
+                                      (4, 38568, True), (4, 38576, False),
+                                      (1, 57856, True), (2, 57856, True)])
 def test_shared_memory_fit(s, c, fits):
+    """The fit covers every kernel, the one-launch compressor's rows (Kernel
+    I's, with the emit flags and flag words where the symbols were) too,
+    and that term rejects no geometry the other kernels take."""
+    mono = max(c * s, c + 4 * -(-c // 32)) + 2 * c
+    assert autotune.kernel_smem_bytes(c, s) >= mono
+    assert autotune.kernel_smem_bytes(c, s) == max(c * s + 2 * c, 4 * c)
     if fits:
         autotune.validate_block_geometry(c, 8, s)
     else:

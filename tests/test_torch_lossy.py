@@ -195,7 +195,8 @@ def test_config_pins_the_lossy_decoder_and_crosses_from_reference():
     jcfg, tcfg = _cfgs(1e-3, "deflate-full")
     assert tcfg.decoder == jcfg.decoder == "lossy-fz"
     assert tcfg.lossy_eb == 1e-3 and tcore.container_method("lossy-fz") == tfmt.METHOD_LOSSY
-    for inner, want in (("xla", "auto"), ("fused-mono", "auto"), ("deflate-full", "deflate-full")):
+    for inner, want in (("xla", "auto"), ("fused-mono", "fused-mono"),
+                        ("deflate-full", "deflate-full")):
         j = jlzss.LZSSConfig(symbol_size=4, backend="lossy-fz", lossy_eb=0.0, lossy_inner=inner)
         t = tcore.config_from_jax(dataclasses.asdict(j))
         assert (t.backend, t.decoder, t.lossy_eb, t.lossy_inner) == ("lossy-fz", "lossy-fz", 0.0, want)
