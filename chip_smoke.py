@@ -8,13 +8,17 @@ Phases, any failure of which exits non-zero:
 
   1. card       name and power limit (nvidia-smi), torch's device name
   2. build      the eleven kernels' seven sources from src/repro_torch/csrc,
-                ptxas -v lines
+                ptxas -v lines, and the registers and resident blocks per
+                SM of the three kernels that walk the window
   3. kernels    each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors, exactly equal (integer outputs): the
                 LZSS kernels (split, one-launch and match-only) at C=2048
                 with S in {1,2,4} x W in {32,128,255}, and C=32768, the
                 one-launch pair also against the split kernels and on a
                 ragged batch of 3 blobs holding only their live bytes; the
+                three kernels that walk the window on the walk's edge inputs
+                (repro_torch/data/walk_edges.py) at C=2048 and at the
+                largest chunks accepted (C=38,568 at S=4, 57,856 at S=1); the
                 byte histogram over
                 unaligned ranges of a 37 MB container; the gap decoder on
                 a skewed code, a stored-escape code and partial last
@@ -39,7 +43,10 @@ Phases, any failure of which exits non-zero:
                 of one raw and one lossy-fz round trip, CUDA-event times of
                 each kernel, its plain version and, where one exists, the
                 PyTorch call computing the same function, at the main
-                path's shapes, and each kernel's bound
+                path's shapes, and each kernel's bound; the three walking
+                kernels also on all-equal symbols and two-symbol noise, and
+                the compressor's time split into the walk, the selection
+                and scan, and the one-launch phases B + C
 
 The last two lines of standard output are the kernels' JSON record and the
 device record {"ok": true, "device": {...}}.
@@ -92,7 +99,7 @@ def main() -> None:
 
     from repro_torch import core
     from repro_torch.core import deflate, format as fmt, pipeline as pl
-    from repro_torch.data import datasets
+    from repro_torch.data import datasets, walk_edges
     from repro_torch.kernels import (
         _build, lz_decode, lz_decode_mono, lz_fused, lz_match, lz_scatter, ops)
 
@@ -109,6 +116,10 @@ def main() -> None:
     for name, lines in _build.ptxas_report().items():
         for ln in lines:
             print(f"[build] {name}: {ln}")
+    for s, c in ((2, 2048), (4, 38568), (1, 57856)):
+        occ = lz_match.walk_occupancy(symbol_size=s, chunk_symbols=c)
+        print(f"[build] at S={s} C={c}: " + ", ".join(
+            f"{k} {r} registers a thread, {b} resident blocks per SM" for k, (r, b) in occ.items()))
 
     # ------------------------------------- kernels against plain versions
     sources = {1: "tpch-string", 2: "hurr-quant", 4: "rtm-float32"}
@@ -196,6 +207,20 @@ def main() -> None:
               f"{[fmt.HEADER_BYTES + 8 * nc + int(t) for t in tot.sum(1).tolist()]}, "
               f"one-launch pair equal to its plain versions and the split kernels")
 
+    def hold_walk(kind, s, w, c, nc) -> None:
+        """The three kernels that walk the window on one edge input."""
+        sym = torch.from_numpy(walk_edges.walk_edge_symbols(kind, nc, c, s, w)).to(dev)
+        got = lz_match.lz_match_cuda(sym, window=w, symbol_size=s)
+        err["lz_match"] = max(err["lz_match"], *(
+            diff(a, b) for a, b in zip(got, lz_match.lz_match_plain(sym, window=w, symbol_size=s))))
+        kw = dict(window=w, min_match=core.LZSSConfig(symbol_size=s).min_match, symbol_size=s)
+        k1, p1 = lz_match.lz_kernel1_cuda(sym, **kw), lz_match.lz_kernel1_plain(sym, **kw)
+        err["lz_kernel1"] = max(err["lz_kernel1"], *(diff(k1[k], p1[k]) for k in p1))
+        kw.update(cap=fmt.max_compressed_bytes(nc * c * s, s, c), sec_flags=fmt.HEADER_BYTES + 8 * nc)
+        mono = lz_fused.lz_fused_mono_cuda(sym[None], **kw)
+        err["lz_fused_mono"] = max(err["lz_fused_mono"], *(
+            diff(a, b) for a, b in zip(mono, lz_fused.lz_fused_mono_plain(sym[None], **kw))))
+
     def sections(blob, n_tokens, payload_sizes, s, c):
         nc = n_tokens.numel()
         fs = (n_tokens.to(torch.int64) + 7) // 8
@@ -212,6 +237,16 @@ def main() -> None:
         hold(s, w, 32768, 8)
     for s, w, c, nc in ((2, 128, 2048, 64), (4, 255, 2048, 32), (1, 32, 32768, 4)):
         hold_ragged(s, w, c, nc)
+    edges = [(kind, s, w, 2048, 32) for kind in walk_edges.KINDS
+             for s, w in ((1, 1), (2, 128), (4, 255))]
+    edges += [(kind, s, w, c, 2) for s, w, c in ((4, 128, 38568), (1, 255, 57856))
+              for kind in ("word-cross", "cap", "chunk-end")]
+    for case in edges:
+        hold_walk(*case)
+    print(f"[kernels] the walk's edges ({len(edges)} cases: {', '.join(walk_edges.KINDS)}; "
+          f"W in {{1, 128, 255}}, C in {{2048, 38568, 57856}}): max |kernel - plain| "
+          f"lz_match {err['lz_match']}, lz_kernel1 {err['lz_kernel1']}, "
+          f"lz_fused_mono {err['lz_fused_mono']}")
     runs = [
         ("hurr-quant", 128 * MIB, core.LZSSConfig()),
         ("rtm-float32", 64 * MIB, core.LZSSConfig(symbol_size=4)),
@@ -517,8 +552,15 @@ def main() -> None:
         print(f"[time] {card} | {name}: {row['ms']:.4f} ms kernel, {row['plain_ms']:.4f} ms plain"
               f"{lib}, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
               f"({k['bytes']} bytes, {k['ops']} int32 ops), at {k.get('at', f'nc={nc} C={c} S={s} W={w}')}")
-    # Kernel I's cost depends on the data: the far-to-near walk stops at
-    # the first offset whose cap the best length reaches.  All-equal
+    t = {row["name"]: row["ms"] for row in record}
+    sel = t["lz_kernel1"] - t["lz_match"]
+    print(f"[time] {card} | compressor split, hurr-quant 128 MiB: walk (lz_match) "
+          f"{t['lz_match']:.4f} ms, selection + scan (lz_kernel1 - lz_match) {sel:.4f} ms "
+          f"({sel / t['lz_kernel1']:.1%} of lz_kernel1), one-launch phases B + C less Kernel "
+          f"I's 13 output bytes a position (lz_fused_mono - lz_kernel1) "
+          f"{t['lz_fused_mono'] - t['lz_kernel1']:.4f} ms")
+    # The walk's cost depends on the data: a word's walk stops at the first
+    # offset where no lane's cap exceeds its best length.  All-equal
     # symbols stop at once; two-symbol noise visits every offset.
     for label, x in (
         ("all-equal symbols", torch.zeros_like(sym)),
@@ -526,9 +568,12 @@ def main() -> None:
                                            generator=torch.Generator(dev).manual_seed(0),
                                            dtype=torch.int32)),
     ):
-        t = ms(lambda: lz_match.lz_kernel1_cuda(x, **kw), 3)
-        print(f"[time] {card} | lz_kernel1 on {label}: {t:.4f} ms "
-              f"({kernel1_compares(x, w, c)} compares), at nc={nc} C={c} S={s} W={w}")
+        walkers = (("lz_match", lambda: lz_match.lz_match_cuda(x, window=w, symbol_size=s)),
+                   ("lz_kernel1", lambda: lz_match.lz_kernel1_cuda(x, **kw)),
+                   ("lz_fused_mono", lambda: lz_fused.lz_fused_mono_cuda(x[None], **kwm)))
+        cells = ", ".join(f"{name} {ms(fn, 3):.4f} ms" for name, fn in walkers)
+        print(f"[time] {card} | on {label}: {cells} ({kernel1_compares(x, w, c)} compares "
+              f"of the per-thread walk), at nc={nc} C={c} S={s} W={w}")
     print(f"[kernels] {launches} max |kernel - plain| {err}")
     print(card)
     print(json.dumps({"kernels": record}))
@@ -923,7 +968,10 @@ def container_kernel_spec(stage_in) -> dict:
 
 
 def kernel1_compares(sym, window: int, c: int) -> int:
-    """Symbol compares Kernel I's far-to-near window walk makes on ``sym``.
+    """Symbol compares a per-thread far-to-near window walk makes on ``sym``:
+    the operations of the walking kernels' bound.  The warp walk makes other
+    compares; the bound keeps this count so that it stays comparable with
+    the bounds recorded for the per-thread walk it replaced.
 
     For each position the walk visits offsets d = min(i, W) .. 1 while the
     cap min(d, 255, C - i) exceeds the best length so far; a visited offset

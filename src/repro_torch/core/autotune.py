@@ -26,7 +26,9 @@ def kernel_smem_bytes(chunk_symbols: int, symbol_size: int) -> int:
     flag bytes, rounded to words.  The one-launch compressor holds Kernel
     I's rows and, where the symbols were, the emit flags and flag words:
     max(C * S, C + 4 * ceil(C / 32)) + 2 * C, never more than the largest
-    of the others (3.125 C against 4 C at S = 1).
+    of the others (3.125 C against 4 C at S = 1).  The warp-synchronous
+    window walk keeps its equality words in registers and adds no shared
+    row, so every geometry accepted for the per-thread walk still fits.
     """
     c, s = chunk_symbols, symbol_size
     words = 4 * -(-c // 32)

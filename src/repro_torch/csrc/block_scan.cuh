@@ -36,6 +36,14 @@ __device__ __forceinline__ int block_excl_scan(int v, int* total, int* warp_sums
   return base + x - v;
 }
 
+// Sum of one int per thread across the block, under the same conditions as
+// block_excl_scan.
+__device__ __forceinline__ int block_sum(int v, int* warp_sums) {
+  int total;
+  block_excl_scan(v, &total, warp_sums);
+  return total;
+}
+
 // Enlarge a kernel's dynamic shared memory limit when it needs more than
 // the 48 KB every kernel gets without asking.
 template <typename Kernel>
@@ -43,6 +51,19 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Registers a thread and resident blocks per SM of ``kernel`` at ``threads``
+// a block and ``smem`` bytes of dynamic shared memory.
+template <typename Kernel>
+static cudaError_t kernel_occupancy(Kernel kernel, int threads, size_t smem, int* regs,
+                                    int* blocks) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
 }
 
 extern "C" const char* gplz_error_string(int code) {

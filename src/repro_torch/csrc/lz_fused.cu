@@ -12,30 +12,38 @@
 //
 //   A. each block takes chunks from an atomic ticket, so that one whose
 //      chunks walk faster takes more of them, and runs Kernel I on each in
-//      shared memory (the window walk, the selection thread and the block
-//      scan of kernel1.cuh); then the chunk's compact payload bytes and
-//      flag bytes go to a staging workspace at fixed per-chunk strides
-//      (C*S and C/8 bytes), and its
-//      n_tokens / payload_sizes to their tables.  One block scan per tile
-//      carries both the payload offset (low 16 bits) and the token rank
-//      (high bits).  Literals are re-read from the symbols in device
-//      memory: their shared copy holds the emit flags and flag words by
-//      then, which keeps the shared need at C * (S + 2) bytes or less;
-//   B. one block per buffer scans the per-chunk flag and payload sizes
-//      (Kernel II), each thread over a run of chunks, payload offsets
-//      pre-based by the flag total;
-//   C. each block copies its chunks' staged bytes to their final offsets
-//      (Kernel III), and the grid zero-fills the header / table region and
-//      everything from the live end to the buffer's capacity.
+//      shared memory (the warp-synchronous window walk, the selection
+//      thread and the block scan of kernel1.cuh); then the chunk's compact
+//      payload bytes and flag bytes go to a staging workspace at fixed
+//      per-chunk strides (C*S and C/8 bytes), its n_tokens / payload_sizes
+//      to their tables, and both sizes are added (atomics) to the sums of
+//      its segment of 256 chunks.  One block scan per tile carries both the
+//      payload offset (low 16 bits) and the token rank (high bits).
+//      Literals are re-read from the symbols in device memory: their shared
+//      copy holds the emit flags and flag words by then, which keeps the
+//      shared need at C * (S + 2) bytes or less.  With each chunk the block
+//      also zeroes a slice of the containers (16-byte stores, which overlap
+//      the walk);
+//   B. Kernel II over the whole grid: each block takes a segment, bases it
+//      on the sums of the row's earlier segments and scans its 256 chunks'
+//      flag and payload sizes, payload offsets pre-based by the flag total;
+//   C. Kernel III: each warp copies one chunk's staged bytes to their final
+//      offsets over the zeros, 4-byte stores of words assembled by funnel
+//      shifts.
 //
 // The separate workspace keeps the phases free of races and leaves no stale
 // staging bytes in the container.  Against the split path it saves the
 // round trip of Kernel I's (nc, C) outputs through device memory (13 bytes
-// written and 17 read per position).  Bound on the H100: the window walk's
-// compares, as for Kernel I; the bytes (4 in per position, the container
-// written once) are far below them at W = 128.  The kernel is held to 32
-// registers a thread so that 8 blocks stay resident on each SM, as they do
-// for Kernel I: the walk is latency-bound.
+// written and 17 read per position).  Bound on the H100: the window walk,
+// as for Kernel I; the bytes (4 in per position, the container written
+// once) are far below it at W = 128.  Phases B and C once scanned a
+// buffer's sizes in one block and copied one byte per thread, and took
+// 0.156 and 0.152 ms at 128 MiB of hurr-quant, waiting on memory latency;
+// spread over the grid, and a warp per chunk, they take 0.004 and 0.059 ms
+// (globaltimer stamps around the grid barriers, H100).  The kernel is held
+// to 32 registers a thread so that 8 blocks stay resident on each SM: with
+// the warp walk that spills a little, and is still faster than 6 blocks at
+// 40 registers or 4 at 64 (5.82, 5.98 and 6.61 ms at 128 MiB).
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -50,6 +58,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 8;
+constexpr int kSeg = kThreads;  // chunks a phase-B item scans
 
 // Shared bytes ahead of the length / offset rows: the symbols during the
 // walk, then the emit flags (C bytes) and the flag words (C / 8 bytes,
@@ -60,23 +69,29 @@ size_t head_bytes(int C, int S) {
   return sym > flags ? sym : flags;
 }
 
-// Zero n bytes at p with the grid's threads: 16-byte stores between an
-// unaligned head and tail.
-__device__ void zero_bytes(uint8_t* p, long long n, long long tid, long long stride) {
-  const long long mis = static_cast<long long>((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15);
-  const long long head = min(n, mis);
-  for (long long j = tid; j < head; j += stride) p[j] = 0;
-  uint4* v = reinterpret_cast<uint4*>(p + head);
-  const long long nv = (n - head) / 16;
-  for (long long j = tid; j < nv; j += stride) v[j] = make_uint4(0, 0, 0, 0);
-  for (long long j = head + 16 * nv + tid; j < n; j += stride) p[j] = 0;
+// Copy n bytes with the 32 lanes of a warp: 4-byte stores to the aligned
+// words of dst, each assembled from two aligned words of src by a funnel
+// shift (reading at most 4 bytes past src + n), bytes at the head and tail.
+__device__ __forceinline__ void warp_copy(uint8_t* dst, const uint8_t* src, int n, int lane) {
+  const int head = min(n, static_cast<int>((4 - (reinterpret_cast<uintptr_t>(dst) & 3)) & 3));
+  if (lane < head) dst[lane] = src[lane];
+  dst += head;
+  src += head;
+  n -= head;
+  const int sa = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 3);
+  const uint32_t* sw = reinterpret_cast<const uint32_t*>(src - sa);
+  uint32_t* dw = reinterpret_cast<uint32_t*>(dst);
+  const int nw = n >> 2;
+  for (int j = lane; j < nw; j += 32)
+    dw[j] = __funnelshift_r(sw[j], sa ? sw[j + 1] : 0u, 8 * sa);
+  if (lane < n - 4 * nw) dst[4 * nw + lane] = src[4 * nw + lane];
 }
 
 template <typename Sym>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fused_mono(const int32_t* __restrict__ symbols, int rows, int nc, int C, int S, int W,
            int min_match, long long head, long long sec_flags, long long cap,
-           int* __restrict__ ticket, uint8_t* __restrict__ stage, int32_t* __restrict__ flag_off,
+           int* __restrict__ work, uint8_t* __restrict__ stage, int32_t* __restrict__ flag_off,
            int32_t* __restrict__ pay_off, uint8_t* __restrict__ blob,
            int32_t* __restrict__ n_tokens, int32_t* __restrict__ payload_sizes,
            int32_t* __restrict__ totals) {
@@ -92,8 +107,14 @@ fused_mono(const int32_t* __restrict__ symbols, int rows, int nc, int C, int S, 
   const int nwords = (C + 31) / 32;
   uint8_t* stage_flags = stage;
   uint8_t* stage_pay = stage + n_all * cb;
+  const int nseg = (nc + kSeg - 1) / kSeg;
+  int* ticket = work;
+  int* seg = work + 1;  // (rows, nseg, 2): flag and payload bytes of kSeg chunks
   cg::grid_group grid = cg::this_grid();
   __shared__ long long next;
+  // the container's zeros: a slice with each chunk taken, 16-byte stores
+  // that overlap the walk; the sections are written over them in phase C
+  const long long zvec = rows * cap / 16;
 
   // ---- A: Kernel I and the chunk's compact bytes, staged.  Chunks are
   // taken from an atomic ticket: their walks differ in cost, and a block
@@ -104,14 +125,19 @@ fused_mono(const int32_t* __restrict__ symbols, int rows, int nc, int C, int S, 
     __syncthreads();
     const long long chunk = next;
     if (chunk >= n_all) break;
+    uint4* zv = reinterpret_cast<uint4*>(blob);
+    for (long long j = chunk * zvec / n_all + threadIdx.x; j < (chunk + 1) * zvec / n_all;
+         j += blockDim.x)
+      zv[j] = make_uint4(0, 0, 0, 0);
+    if (chunk == n_all - 1)
+      for (long long j = 16 * zvec + threadIdx.x; j < rows * cap; j += blockDim.x) blob[j] = 0;
     const long long base = chunk * C;
     gplz::load_chunk(symbols + base, C, sym);
     __syncthreads();
-    for (int i = threadIdx.x; i < C; i += blockDim.x) {
-      const int2 m = gplz::best_match(sym, i, C, W);
-      slen[i] = static_cast<uint8_t>(m.x);
-      soff[i] = static_cast<uint8_t>(m.y);
-    }
+    gplz::walk_chunk(sym, C, W, [&](int i, int len, int off) {
+      slen[i] = static_cast<uint8_t>(len);
+      soff[i] = static_cast<uint8_t>(off);
+    });
     __syncthreads();  // the symbols are dead from here
     for (int w = threadIdx.x; w < nwords; w += blockDim.x) flag_words[w] = 0;
     gplz::select_tokens(slen, emit, C, min_match);  // its barriers order the zeros too
@@ -150,68 +176,75 @@ fused_mono(const int32_t* __restrict__ symbols, int rows, int nc, int C, int S, 
     if (threadIdx.x == 0) {
       n_tokens[chunk] = ntok;
       payload_sizes[chunk] = carry;
+      int* sg = seg + 2 * ((chunk / nc) * nseg + (chunk % nc) / kSeg);
+      atomicAdd(sg, (ntok + 7) / 8);
+      atomicAdd(sg + 1, carry);
     }
     __syncthreads();  // before the next chunk's symbols overwrite the flags
   }
   grid.sync();
 
-  // ---- B: Kernel II, one block per buffer.  Each thread sums a run of
-  // ceil(nc / blockDim) chunks, one block scan of those sums gives each
-  // run's base, and the thread writes its run's offsets: two block scans a
-  // buffer, not two per tile of chunks.
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+  // ---- B: Kernel II over the whole grid.  Each block takes (row, segment)
+  // items: the segment's bases are the sums of the row's earlier segments
+  // (added up in phase A), and one block scan of its kSeg = blockDim chunks
+  // gives their offsets; payload offsets are pre-based by the flag total.
+  for (long long item = blockIdx.x; item < static_cast<long long>(rows) * nseg;
+       item += gridDim.x) {
+    const int r = static_cast<int>(item / nseg), sg = static_cast<int>(item % nseg);
+    const int* srow = seg + 2LL * r * nseg;
+    int f_pre = 0, f_all = 0, p_pre = 0, p_all = 0;
+    for (int j = threadIdx.x; j < nseg; j += blockDim.x) {
+      const int f = srow[2 * j], pz = srow[2 * j + 1];
+      f_all += f;
+      p_all += pz;
+      if (j < sg) {
+        f_pre += f;
+        p_pre += pz;
+      }
+    }
+    const int flag_total = block_sum(f_all, warp_sums), pay_total = block_sum(p_all, warp_sums);
+    f_pre = block_sum(f_pre, warp_sums);
+    p_pre = block_sum(p_pre, warp_sums);
     const long long row = static_cast<long long>(r) * nc;
-    const int per = (nc + blockDim.x - 1) / blockDim.x;
-    const int lo = min(nc, static_cast<int>(threadIdx.x) * per), hi = min(nc, lo + per);
-    int fsum = 0, psum = 0;
-    for (int i = lo; i < hi; ++i) {
-      fsum += (n_tokens[row + i] + 7) / 8;
-      psum += payload_sizes[row + i];
+    const int i = sg * kSeg + threadIdx.x;
+    const int fs = i < nc ? (n_tokens[row + i] + 7) / 8 : 0;
+    const int ps = i < nc ? payload_sizes[row + i] : 0;
+    int unused;
+    const int fe = block_excl_scan(fs, &unused, warp_sums);
+    const int pe = block_excl_scan(ps, &unused, warp_sums);
+    if (i < nc) {
+      flag_off[row + i] = f_pre + fe;
+      pay_off[row + i] = flag_total + p_pre + pe;
     }
-    int flag_total, pay_total;
-    int f = block_excl_scan(fsum, &flag_total, warp_sums);
-    int p = flag_total + block_excl_scan(psum, &pay_total, warp_sums);
-    for (int i = lo; i < hi; ++i) {
-      flag_off[row + i] = f;
-      pay_off[row + i] = p;
-      f += (n_tokens[row + i] + 7) / 8;
-      p += payload_sizes[row + i];
-    }
-    if (threadIdx.x == 0) {
+    if (sg == 0 && threadIdx.x == 0) {
       totals[2 * r] = flag_total;
       totals[2 * r + 1] = pay_total;
     }
   }
   grid.sync();
 
-  // ---- C: Kernel III, the staged bytes to their offsets, and the zeros
-  for (long long chunk = blockIdx.x; chunk < n_all; chunk += gridDim.x) {
+  // ---- C: Kernel III, the staged bytes to their offsets, a warp a chunk
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (long long chunk = static_cast<long long>(blockIdx.x) * warps + (threadIdx.x >> 5);
+       chunk < n_all; chunk += static_cast<long long>(gridDim.x) * warps) {
     uint8_t* section = blob + (chunk / nc) * cap + sec_flags;
-    const uint8_t* sf = stage_flags + chunk * cb;
-    uint8_t* df = section + flag_off[chunk];
-    const int fsz = (n_tokens[chunk] + 7) / 8, psz = payload_sizes[chunk];
-    for (int j = threadIdx.x; j < fsz; j += blockDim.x) df[j] = sf[j];
-    const uint8_t* sp = stage_pay + chunk * C * S;
-    uint8_t* dp = section + pay_off[chunk];
-    for (int j = threadIdx.x; j < psz; j += blockDim.x) dp[j] = sp[j];
+    warp_copy(section + flag_off[chunk], stage_flags + chunk * cb, (n_tokens[chunk] + 7) / 8,
+              lane);
+    warp_copy(section + pay_off[chunk], stage_pay + chunk * C * S, payload_sizes[chunk], lane);
   }
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (int r = 0; r < rows; ++r) {
-    uint8_t* row = blob + r * cap;
-    zero_bytes(row, sec_flags, tid, stride);
-    const long long live = sec_flags + totals[2 * r] + totals[2 * r + 1];
-    zero_bytes(row + live, cap - live, tid, stride);
-  }
+}
+
+size_t smem_bytes(int C, int S) {
+  return head_bytes(C, S) + 2 * static_cast<size_t>(C);
 }
 
 template <typename Sym>
 cudaError_t launch(const void* symbols, int rows, int nc, int C, int S, int W, int min_match,
-                   long long sec_flags, long long cap, void* ticket, void* stage, void* flag_off,
+                   long long sec_flags, long long cap, void* work, void* stage, void* flag_off,
                    void* pay_off, void* blob, void* n_tokens, void* payload_sizes,
                    void* totals, cudaStream_t stream) {
   long long head = static_cast<long long>(head_bytes(C, S));
-  const size_t smem = static_cast<size_t>(head) + 2 * static_cast<size_t>(C);
+  const size_t smem = smem_bytes(C, S);
   auto kernel = fused_mono<Sym>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -235,9 +268,9 @@ cudaError_t launch(const void* symbols, int rows, int nc, int C, int S, int W, i
   int32_t* n_tokens_p = static_cast<int32_t*>(n_tokens);
   int32_t* payload_sizes_p = static_cast<int32_t*>(payload_sizes);
   int32_t* totals_p = static_cast<int32_t*>(totals);
-  int* ticket_p = static_cast<int*>(ticket);
+  int* work_p = static_cast<int*>(work);
   void* args[] = {&sym, &rows, &nc, &C, &S, &W, &min_match, &head,
-                  &sec_flags, &cap, &ticket_p, &stage_p, &flag_off_p, &pay_off_p, &blob_p,
+                  &sec_flags, &cap, &work_p, &stage_p, &flag_off_p, &pay_off_p, &blob_p,
                   &n_tokens_p, &payload_sizes_p, &totals_p};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
                                     dim3(kThreads), args, smem, stream);
@@ -250,26 +283,43 @@ cudaError_t launch(const void* symbols, int rows, int nc, int C, int S, int W, i
 // (rows * nc, C) int32 symbols -> blob (rows, cap) uint8 with each row's
 // flag section at sec_flags, its payload section right after, zeros
 // elsewhere; n_tokens, payload_sizes (rows * nc,) int32; totals (rows, 2)
-// int32 = (flag_total, pay_total).  ticket is one int32 the caller has
-// zeroed; stage is rows * nc * (C/8 + C*S) bytes and flag_off, pay_off
+// int32 = (flag_total, pay_total).  work is 1 + 2 * rows * ceil(nc / 256)
+// int32 the caller has zeroed (the chunk ticket and the segment sums);
+// stage is rows * nc * (C/8 + C*S) + 16 bytes and flag_off, pay_off
 // rows * nc int32 of workspace.
 // Returns a cudaError_t code (0 on success).
 extern "C" int lz_fused_mono_launch(const void* symbols, int rows, int nc, int C, int S, int W,
                                     int min_match, long long sec_flags, long long cap,
-                                    void* ticket, void* stage, void* flag_off, void* pay_off,
+                                    void* work, void* stage, void* flag_off, void* pay_off,
                                     void* blob, void* n_tokens, void* payload_sizes,
                                     void* totals, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (S) {
     case 1:
-      return launch<uint8_t>(symbols, rows, nc, C, S, W, min_match, sec_flags, cap, ticket, stage,
+      return launch<uint8_t>(symbols, rows, nc, C, S, W, min_match, sec_flags, cap, work, stage,
                              flag_off, pay_off, blob, n_tokens, payload_sizes, totals, st);
     case 2:
-      return launch<uint16_t>(symbols, rows, nc, C, S, W, min_match, sec_flags, cap, ticket, stage,
+      return launch<uint16_t>(symbols, rows, nc, C, S, W, min_match, sec_flags, cap, work, stage,
                               flag_off, pay_off, blob, n_tokens, payload_sizes, totals, st);
     case 4:
-      return launch<uint32_t>(symbols, rows, nc, C, S, W, min_match, sec_flags, cap, ticket, stage,
+      return launch<uint32_t>(symbols, rows, nc, C, S, W, min_match, sec_flags, cap, work, stage,
                               flag_off, pay_off, blob, n_tokens, payload_sizes, totals, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// out[0..1] = registers a thread and resident blocks per SM of the kernel at
+// symbol size S and chunk C.  Returns a cudaError_t code (0 on success).
+extern "C" int lz_fused_occupancy(int S, int C, void* out) {
+  int* o = static_cast<int*>(out);
+  switch (S) {
+    case 1:
+      return kernel_occupancy(fused_mono<uint8_t>, kThreads, smem_bytes(C, S), o, o + 1);
+    case 2:
+      return kernel_occupancy(fused_mono<uint16_t>, kThreads, smem_bytes(C, S), o, o + 1);
+    case 4:
+      return kernel_occupancy(fused_mono<uint32_t>, kThreads, smem_bytes(C, S), o, o + 1);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

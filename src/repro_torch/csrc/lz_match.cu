@@ -6,27 +6,31 @@
 // (launched by lz_kernel1_pallas); the match-only kernel replaces
 // src/repro/kernels/lz_match.py:_match_kernel (launched by lz_match_pallas).
 // The TPU layout (chunks on sublanes, lane rolls, capped run-length
-// doubling over whole rows) is not carried over; this is the paper's own
-// CUDA shape (§3.3.2), with the per-chunk steps in kernel1.cuh:
+// doubling over whole rows) is not carried over, but its order is: offsets
+// in lockstep.  The per-chunk steps are in kernel1.cuh:
 //
 //   * the chunk's symbols sit in shared memory at S bytes each, and one
 //     length byte and one offset byte per position beside them, so
 //     C * (S + 2) bytes fit in a block's 227 KB at every C the port
 //     accepts (core/autotune.py);
-//   * each thread takes positions i, i + blockDim, ... and walks the window
-//     far to near (gplz::best_match);
+//   * each warp takes 64 consecutive positions and walks the window for all
+//     of them at once, one offset at a time, three ballots per offset
+//     (gplz::walk_chunk); it replaces a per-thread walk whose lanes
+//     diverged on runs of different lengths;
 //   * one thread walks the lengths to select tokens (the paper's encode
 //     thread); the emitted flags reuse the symbol bytes, which are dead by
-//     then;
+//     then.  It costs Kernel I 0.26 ms over the match-only kernel at 128 MiB
+//     of hurr-quant, under 5% of it, so it stays serial;
 //   * the block scans token sizes tile by tile for local_off, and sums
 //     them for payload_sizes and n_tokens.
 //
-// Bound on the H100, both kernels: integer compares in the window walk, at
-// most min(i, W) candidate offsets per position plus the run lengths of
-// the matches found; the bytes moved (4 bytes in, 13 out per position for
-// Kernel I, 8 for the match-only kernel) are small beside them at W = 128.
-// The early exit makes runs of equal symbols cheap (the first, farthest
-// offset already reaches the cap).
+// Bound on the H100, both kernels: the issue rate of the walk's integer
+// instructions, about 16 warp instructions per offset for 64 positions, at
+// most min(p + 63, W) offsets; the bytes moved (4 bytes in, 13 out per
+// position for Kernel I, 8 for the match-only kernel) are small beside them
+// at W = 128.  The early stop makes runs of equal symbols cheap: the first,
+// farthest offset already reaches every cap.  Kernel I is held to 32
+// registers so that 8 blocks of 256 threads stay resident on an SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -39,7 +43,7 @@ namespace {
 constexpr int kThreads = 256;
 
 template <typename Sym>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 8)
 kernel1(const int32_t* __restrict__ symbols, int C, int W, int min_match, int S,
         int32_t* __restrict__ lengths, int32_t* __restrict__ offsets,
         uint8_t* __restrict__ emitted, int32_t* __restrict__ local_off,
@@ -54,13 +58,12 @@ kernel1(const int32_t* __restrict__ symbols, int C, int W, int min_match, int S,
   gplz::load_chunk(symbols + base, C, sym);
   __syncthreads();
 
-  for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    const int2 m = gplz::best_match(sym, i, C, W);
-    slen[i] = static_cast<uint8_t>(m.x);
-    soff[i] = static_cast<uint8_t>(m.y);
-    lengths[base + i] = m.x;
-    offsets[base + i] = m.y;
-  }
+  gplz::walk_chunk(sym, C, W, [&](int i, int len, int off) {
+    slen[i] = static_cast<uint8_t>(len);
+    soff[i] = static_cast<uint8_t>(off);
+    lengths[base + i] = len;
+    offsets[base + i] = off;
+  });
   __syncthreads();
 
   uint8_t* emit = smem;  // the symbols are dead: reuse their first C bytes
@@ -98,18 +101,22 @@ match_only(const int32_t* __restrict__ symbols, int C, int W, int32_t* __restric
   const long long base = static_cast<long long>(blockIdx.x) * C;
   gplz::load_chunk(symbols + base, C, sym);
   __syncthreads();
-  for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    const int2 m = gplz::best_match(sym, i, C, W);
-    lengths[base + i] = m.x;
-    offsets[base + i] = m.y;
-  }
+  gplz::walk_chunk(sym, C, W, [&](int i, int len, int off) {
+    lengths[base + i] = len;
+    offsets[base + i] = off;
+  });
+}
+
+template <typename Sym>
+size_t kernel1_smem(int C) {
+  return static_cast<size_t>(C) * (sizeof(Sym) + 2);
 }
 
 template <typename Sym>
 cudaError_t launch(const void* symbols, int nc, int C, int S, int W, int min_match,
                    void* lengths, void* offsets, void* emitted, void* local_off,
                    void* payload_sizes, void* n_tokens, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(C) * (sizeof(Sym) + 2);
+  const size_t smem = kernel1_smem<Sym>(C);
   cudaError_t err = allow_smem(kernel1<Sym>, smem);
   if (err != cudaSuccess) return err;
   kernel1<Sym><<<nc, kThreads, smem, stream>>>(
@@ -118,6 +125,14 @@ cudaError_t launch(const void* symbols, int nc, int C, int S, int W, int min_mat
       static_cast<uint8_t*>(emitted), static_cast<int32_t*>(local_off),
       static_cast<int32_t*>(payload_sizes), static_cast<int32_t*>(n_tokens));
   return cudaGetLastError();
+}
+
+template <typename Sym>
+cudaError_t occupancy(int C, int* out) {
+  cudaError_t err = kernel_occupancy(kernel1<Sym>, kThreads, kernel1_smem<Sym>(C), out, out + 1);
+  if (err != cudaSuccess) return err;
+  return kernel_occupancy(match_only<Sym>, kThreads, static_cast<size_t>(C) * sizeof(Sym),
+                          out + 2, out + 3);
 }
 
 template <typename Sym>
@@ -169,6 +184,23 @@ extern "C" int lz_match_launch(const void* symbols, int nc, int C, int S, int W,
       return launch_match<uint16_t>(symbols, nc, C, W, lengths, offsets, st);
     case 4:
       return launch_match<uint32_t>(symbols, nc, C, W, lengths, offsets, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// out[0..3] = registers a thread and resident blocks per SM of Kernel I,
+// then of the match-only kernel, at symbol size S and chunk C.
+// Returns a cudaError_t code (0 on success).
+extern "C" int lz_match_occupancy(int S, int C, void* out) {
+  int* o = static_cast<int*>(out);
+  switch (S) {
+    case 1:
+      return occupancy<uint8_t>(C, o);
+    case 2:
+      return occupancy<uint16_t>(C, o);
+    case 4:
+      return occupancy<uint32_t>(C, o);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -38,6 +38,7 @@ SIGNATURES = {
     "lz_match": {
         "lz_kernel1_launch": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
         "lz_match_launch": [_P, _I, _I, _I, _I, _P, _P, _P],
+        "lz_match_occupancy": [_I, _I, _P],
     },
     "lz_scatter": {
         "lz_global_offsets_launch": [_P, _P, _I, _I, _P, _P, _P, _P],
@@ -58,6 +59,7 @@ SIGNATURES = {
         "lz_fused_mono_launch": [
             _P, _I, _I, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ],
+        "lz_fused_occupancy": [_I, _I, _P],
     },
     "lz_decode_mono": {
         "lz_decode_mono_launch": [_P, _L, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],

@@ -2,8 +2,9 @@
 
 The CUDA kernel is ``csrc/lz_fused.cu`` (a persistent cooperative kernel:
 Kernel I per chunk into a staging workspace, a grid barrier, the global
-prefix sums, a grid barrier, the scatter into the containers).  It
-replaces the TPU kernel ``repro/kernels/lz_fused.py:_mono_kernel``.
+prefix sums over the whole grid, a grid barrier, the copies into the
+containers).  It replaces the TPU kernel
+``repro/kernels/lz_fused.py:_mono_kernel``.
 ``lz_fused_mono_plain`` is its plain PyTorch version, the plain Kernels
 I -> II -> III composed; ``kernels/ops.py`` chooses by the tensor's device.
 """
@@ -55,8 +56,10 @@ def lz_fused_mono_cuda(symbols, *, window, min_match, symbol_size, cap, sec_flag
         raise ValueError(f"cap={cap} cannot hold the sections of {nc} chunks past {sec_flags}")
     dev = x.device
     i32 = dict(dtype=torch.int32, device=dev)
-    ticket = torch.zeros(1, **i32)
-    stage = torch.empty(b * nc * (c // 8 + c * symbol_size), dtype=torch.uint8, device=dev)
+    # the chunk ticket and the per-segment (256 chunks) flag and payload sums
+    work = torch.zeros(1 + 2 * b * -(-nc // 256), **i32)
+    # the staged sections, and 16 bytes for the copies' word reads past them
+    stage = torch.empty(b * nc * (c // 8 + c * symbol_size) + 16, dtype=torch.uint8, device=dev)
     flag_off = torch.empty(b * nc, **i32)
     pay_off = torch.empty(b * nc, **i32)
     blobs = torch.empty(b, cap, dtype=torch.uint8, device=dev)
@@ -66,7 +69,7 @@ def lz_fused_mono_cuda(symbols, *, window, min_match, symbol_size, cap, sec_flag
     lib = _build.library("lz_fused")
     code = lib.lz_fused_mono_launch(
         x.data_ptr(), b, nc, c, symbol_size, window, min_match, sec_flags, cap,
-        ticket.data_ptr(), stage.data_ptr(), flag_off.data_ptr(), pay_off.data_ptr(),
+        work.data_ptr(), stage.data_ptr(), flag_off.data_ptr(), pay_off.data_ptr(),
         blobs.data_ptr(), n_tokens.data_ptr(), payload_sizes.data_ptr(), totals.data_ptr(),
         _build.stream(x),
     )

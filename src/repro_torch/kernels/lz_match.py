@@ -10,6 +10,8 @@ plain PyTorch versions; ``kernels/ops.py`` chooses by the tensor's device.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core import autotune
@@ -90,3 +92,18 @@ def lz_match_cuda(symbols, *, window, symbol_size):
     )
     _build.check(lib, code, "match kernel (lz_match_launch)")
     return lengths, offsets
+
+
+def walk_occupancy(*, symbol_size, chunk_symbols):
+    """{kernel: (registers a thread, resident blocks per SM)} of the three
+    kernels that walk the window (Kernel I, the match-only kernel, the
+    one-launch compressor) at this geometry, from the CUDA occupancy API."""
+    out = (ctypes.c_int * 4)()
+    ptr = ctypes.cast(out, ctypes.c_void_p)
+    lib = _build.library("lz_match")
+    _build.check(lib, lib.lz_match_occupancy(symbol_size, chunk_symbols, ptr), "occupancy")
+    res = {"lz_kernel1": (out[0], out[1]), "lz_match": (out[2], out[3])}
+    lib = _build.library("lz_fused")
+    _build.check(lib, lib.lz_fused_occupancy(symbol_size, chunk_symbols, ptr), "occupancy")
+    res["lz_fused_mono"] = (out[0], out[1])
+    return res

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import core
 from repro_torch.core import entropy, format as fmt, pipeline as pl
+from repro_torch.data import walk_edges
 from repro_torch.kernels import lz_bitshuffle, lz_decode_mono, lz_entropy, lz_fused, lz_match, ops
 
 GEOMETRIES = [(1, 32, 64), (2, 128, 128), (4, 255, 64), (4, 128, 2048), (2, 255, 32768)]
@@ -134,6 +135,36 @@ def test_one_launch_per_batch_call(cuda):
     res = core.compress(arrays[0], core.LZSSConfig(backend="cuda-match"))
     assert np.array_equal(res.data, many[0].data)
     assert ops.launch_counts()["lz_match"] == 1
+
+
+# ------------------------------------------------ the window walk's edges
+
+# (S, W, C): W=1, the main path's S=2 W=128, the 255 cap at W=255, and the
+# largest chunks the shared-memory fit accepts (38,568 is not a multiple of
+# 32, so its last word is partial)
+WALK_GEOMETRIES = [(1, 1, 2048), (2, 128, 2048), (2, 255, 2048), (4, 255, 2048),
+                   (4, 128, 38568), (1, 255, 57856)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", walk_edges.KINDS)
+@pytest.mark.parametrize("s,w,c", WALK_GEOMETRIES)
+def test_walk_kernels_equal_plain_on_walk_edges(cuda, kind, s, w, c):
+    """The three kernels that walk the window (the match-only kernel, Kernel
+    I, the one-launch compressor) equal their plain versions on runs that
+    cross words and tiles, reach the cap or the chunk's end, tie, and on
+    all-equal symbols and two-symbol noise."""
+    nc = 2 if c > 2048 else 8
+    sym = torch.from_numpy(walk_edges.walk_edge_symbols(kind, nc, c, s, w)).to(cuda)
+    got = lz_match.lz_match_cuda(sym, window=w, symbol_size=s)
+    want = lz_match.lz_match_plain(sym, window=w, symbol_size=s)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    kw = dict(window=w, min_match=core.LZSSConfig(symbol_size=s).min_match, symbol_size=s)
+    k1, p1 = lz_match.lz_kernel1_cuda(sym, **kw), lz_match.lz_kernel1_plain(sym, **kw)
+    assert all(torch.equal(k1[k], p1[k]) for k in p1)
+    kw.update(cap=fmt.max_compressed_bytes(nc * c * s, s, c), sec_flags=fmt.HEADER_BYTES + 8 * nc)
+    mono = lz_fused.lz_fused_mono_cuda(sym[None], **kw)
+    assert all(torch.equal(a, b) for a, b in zip(mono, lz_fused.lz_fused_mono_plain(sym[None], **kw)))
 
 
 # ------------------------------------------------ entropy and lossy stages
