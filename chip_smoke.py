@@ -9,7 +9,8 @@ Phases, any failure of which exits non-zero:
   1. card       name and power limit (nvidia-smi), torch's device name
   2. build      the eleven kernels' seven sources from src/repro_torch/csrc,
                 ptxas -v lines, and the registers and resident blocks per
-                SM of the three kernels that walk the window
+                SM of the three kernels that walk the window, the two LZSS
+                decoders and the gap decoder
   3. kernels    each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors, exactly equal (integer outputs): the
                 LZSS kernels (split, one-launch and match-only) at C=2048
@@ -19,6 +20,11 @@ Phases, any failure of which exits non-zero:
                 three kernels that walk the window on the walk's edge inputs
                 (repro_torch/data/walk_edges.py) at C=2048 and at the
                 largest chunks accepted (C=38,568 at S=4, 57,856 at S=1); the
+                two LZSS decoders on the decoders' edge inputs
+                (repro_torch/data/decode_edges.py: literal-only chunks, the
+                deepest copy chain, a partial last tile, mixed runs) at C=8
+                and 2048 with S in {1,2,4} and at C=38,568 (S=4) and 57,856
+                (S=1), and the gap decoder on its edge codes; the
                 byte histogram over
                 unaligned ranges of a 37 MB container; the gap decoder on
                 a skewed code, a stored-escape code and partial last
@@ -46,7 +52,10 @@ Phases, any failure of which exits non-zero:
                 path's shapes, and each kernel's bound; the three walking
                 kernels also on all-equal symbols and two-symbol noise, and
                 the compressor's time split into the walk, the selection
-                and scan, and the one-launch phases B + C
+                and scan, and the one-launch phases B + C; the two LZSS
+                decoders also on all-literal and long-chain chunks, and the
+                gap decoder also on the container's flag section and on a
+                stored-escape section of the payload's size
 
 The last two lines of standard output are the kernels' JSON record and the
 device record {"ok": true, "device": {...}}.
@@ -99,9 +108,9 @@ def main() -> None:
 
     from repro_torch import core
     from repro_torch.core import deflate, format as fmt, pipeline as pl
-    from repro_torch.data import datasets, walk_edges
+    from repro_torch.data import datasets, decode_edges, walk_edges
     from repro_torch.kernels import (
-        _build, lz_decode, lz_decode_mono, lz_fused, lz_match, lz_scatter, ops)
+        _build, lz_decode, lz_decode_mono, lz_entropy, lz_fused, lz_match, lz_scatter, ops)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -118,8 +127,11 @@ def main() -> None:
             print(f"[build] {name}: {ln}")
     for s, c in ((2, 2048), (4, 38568), (1, 57856)):
         occ = lz_match.walk_occupancy(symbol_size=s, chunk_symbols=c)
+        occ.update(lz_decode.decode_occupancy(symbol_size=s, chunk_symbols=c))
         print(f"[build] at S={s} C={c}: " + ", ".join(
             f"{k} {r} registers a thread, {b} resident blocks per SM" for k, (r, b) in occ.items()))
+    r, b = lz_entropy.gap_decode_occupancy()
+    print(f"[build] huffman_gap_decode {r} registers a thread, {b} resident blocks per SM")
 
     # ------------------------------------- kernels against plain versions
     sources = {1: "tpch-string", 2: "hurr-quant", 4: "rtm-float32"}
@@ -243,6 +255,40 @@ def main() -> None:
               for kind in ("word-cross", "cap", "chunk-end")]
     for case in edges:
         hold_walk(*case)
+
+    def hold_decode(kind, s, c, nc) -> None:
+        """The two LZSS decoders on one edge container."""
+        x, blob, nt, ps = (torch.from_numpy(a).to(dev) for a in
+                           decode_edges.lz_edge_container(kind, nc, c, s, device=dev))
+        flags, pay, _ = sections(blob, nt, ps, s, c)
+        d = lz_decode.lz_decode_cuda(flags, pay, nt, symbol_size=s)
+        err["lz_decode"] = max(err["lz_decode"], diff(d, lz_decode.lz_decode_plain(
+            flags, pay, nt, symbol_size=s)))
+        args, kw = (blob[None], nt[None], ps[None]), dict(symbol_size=s, chunk_symbols=c)
+        dm = lz_decode_mono.lz_decode_mono_cuda(*args, **kw)
+        err["lz_decode_mono"] = max(err["lz_decode_mono"], diff(
+            dm, lz_decode_mono.lz_decode_mono_plain(*args, **kw)))
+        if diff(d, x) or diff(dm[0], x):
+            fail(f"a decoder does not decode the {kind} edge at S={s} C={c}")
+
+    decodes = [(kind, s, c, 2 if c > 2048 else 16) for kind in decode_edges.LZ_KINDS
+               for s, c in ((1, 8), (2, 8), (4, 8), (1, 2048), (2, 2048), (4, 2048), (4, 38568),
+                            (1, 57856))]
+    for case in decodes:
+        hold_decode(*case)
+    for gap_kind in decode_edges.GAP_KINDS:
+        inp = decode_edges.gap_edge_inputs(gap_kind, device=dev)
+        gargs = [inp[k] for k in ("blob", "wstarts", "rems", "first", "count", "base", "order")]
+        got = lz_entropy.huffman_gap_decode_cuda(*gargs, sub=decode_edges.SUB)
+        err["huffman_gap_decode"] = max(err["huffman_gap_decode"], diff(
+            got, lz_entropy.huffman_gap_decode_plain(*gargs, sub=decode_edges.SUB)))
+        if not np.array_equal(got.reshape(-1)[: inp["section"].size].cpu().numpy(), inp["section"]):
+            fail(f"the gap decoder does not decode the {gap_kind} edge")
+    print(f"[kernels] the decoders' edges ({len(decodes)} containers: "
+          f"{', '.join(decode_edges.LZ_KINDS)}; C in {{8, 2048, 38568, 57856}}; gap codes "
+          f"{', '.join(decode_edges.GAP_KINDS)}): max |kernel - plain| lz_decode "
+          f"{err['lz_decode']}, lz_decode_mono {err['lz_decode_mono']}, huffman_gap_decode "
+          f"{err['huffman_gap_decode']}")
     print(f"[kernels] the walk's edges ({len(edges)} cases: {', '.join(walk_edges.KINDS)}; "
           f"W in {{1, 128, 255}}, C in {{2048, 38568, 57856}}): max |kernel - plain| "
           f"lz_match {err['lz_match']}, lz_kernel1 {err['lz_kernel1']}, "
@@ -574,6 +620,26 @@ def main() -> None:
         cells = ", ".join(f"{name} {ms(fn, 3):.4f} ms" for name, fn in walkers)
         print(f"[time] {card} | on {label}: {cells} ({kernel1_compares(x, w, c)} compares "
               f"of the per-thread walk), at nc={nc} C={c} S={s} W={w}")
+    # The decode chain's cost depends on the data too: all-literal chunks
+    # hold C tokens and copy nothing; in the long chain every position copies
+    # the one before it (the most doubling rounds).
+    for label, edge in (("all-literal chunks", "literals"), ("long-chain chunks", "chain")):
+        x, b2, n2, p2 = (torch.from_numpy(a).to(dev) for a in
+                         decode_edges.lz_edge_container(edge, nc, c, s, device=dev))
+        f2, y2, _ = sections(b2, n2, p2, s, c)
+        a2 = (b2[None], n2[None], p2[None])
+        if diff(lz_decode.lz_decode_cuda(f2, y2, n2, symbol_size=s), x) or diff(
+                lz_decode_mono.lz_decode_mono_cuda(*a2, **kwd)[0], x):
+            fail(f"a decoder does not decode the {label}")
+        cells = (f"lz_decode {ms(lambda: lz_decode.lz_decode_cuda(f2, y2, n2, symbol_size=s), 10):.4f}"
+                 f" ms, lz_decode_mono {ms(lambda: lz_decode_mono.lz_decode_mono_cuda(*a2, **kwd), 10):.4f} ms")
+        print(f"[time] {card} | on {label}: {cells} ({int(n2.sum())} tokens), at nc={nc} C={c} S={s}")
+    for label, key in (("the container's flag section", "gap_flags"),
+                       ("a stored escape of the payload's size", "gap_escape")):
+        gargs, gbits, glen = stage_in[key]
+        gms = ms(lambda: lz_entropy.huffman_gap_decode_cuda(*gargs, sub=SUB), 10)
+        print(f"[time] {card} | huffman_gap_decode on {label}: {gms:.4f} ms ({gargs[1].numel()} "
+              f"sub-blocks, {gbits} bits, longest code {glen} bits)")
     print(f"[kernels] {launches} max |kernel - plain| {err}")
     print(card)
     print(json.dumps({"kernels": record}))
@@ -684,11 +750,13 @@ def hold_container_kernels(hurr_quant, err) -> dict:
         print(f"[kernels] huffman_gap_decode, {label}: {k} bytes, {nsub} sub-blocks "
               f"(last holds {k - (nsub - 1) * SUB}), {nbits} bits, max lengths "
               f"{int(lengths.max())}: max |kernel - plain| {e}")
-        return args, nbits
+        return args, nbits, int(lengths.max())
 
     payload = buf[sec + f_tot : sec + f_tot + p_tot]
     gap_main = gap_case(payload, "container payload (skewed code)")
-    gap_case(buf[sec : sec + f_tot], "container flags (skewed code)")
+    gap_flags = gap_case(buf[sec : sec + f_tot], "container flags (skewed code)")
+    flat = torch.arange(256, device=dev, dtype=torch.int32).repeat(p_tot // 256 + 1)[:p_tot]
+    gap_escape = gap_case(flat.to(torch.uint8), "flat histogram of the payload's size (stored escape)")
     flat = torch.arange(256, device=dev, dtype=torch.int32).repeat(4096 + 1)[: (1 << 20) + 37]
     gap_case(flat.to(torch.uint8), "flat histogram (stored escape)")
     gap_case(torch.full((5000,), 9, dtype=torch.uint8, device=dev), "one symbol")
@@ -707,7 +775,8 @@ def hold_container_kernels(hurr_quant, err) -> dict:
             fail(f"bitunshuffle does not invert bitshuffle at {nb} blocks")
     print(f"[kernels] bitshuffle / bitunshuffle at 1 and 65536 blocks: max |kernel - plain| "
           f"{err['bitshuffle']} / {err['bitunshuffle']}")
-    return dict(hist=(buf, sec + f_tot, p_tot), gap=gap_main, units=units, shuffled=shuffled)
+    return dict(hist=(buf, sec + f_tot, p_tot), gap=gap_main[:2], gap_flags=gap_flags,
+                gap_escape=gap_escape, units=units, shuffled=shuffled)
 
 
 def _plain_container(data, cfg):

@@ -22,7 +22,9 @@ def kernel_smem_bytes(chunk_symbols: int, symbol_size: int) -> int:
 
     Kernel I and the match-only kernel hold the chunk's symbols (S bytes
     each) plus one length byte and one offset byte per position; the two
-    decoders hold two u16 copy-source rows; Kernel III holds the chunk's
+    decoders hold a 4C-byte row of keys and copy sources (their staged
+    layout, which adds the literal row and the two sections, is taken
+    only where it fits); Kernel III holds the chunk's
     flag bytes, rounded to words.  The one-launch compressor holds Kernel
     I's rows and, where the symbols were, the emit flags and flag words:
     max(C * S, C + 4 * ceil(C / 32)) + 2 * C, never more than the largest

@@ -36,6 +36,32 @@ __device__ __forceinline__ int block_excl_scan(int v, int* total, int* warp_sums
   return base + x - v;
 }
 
+// Exclusive max-scan of one int >= 0 per thread across the block (0 for
+// thread 0), under the same conditions as block_excl_scan; ``*total``
+// receives the block's max.
+__device__ __forceinline__ int block_excl_max(int v, int* total, int* warp_sums) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) x = max(x, __shfl_up_sync(0xffffffffu, x, o));
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) w = max(w, __shfl_up_sync(0xffffffffu, w, o));
+    warp_sums[lane] = w;  // inclusive maxima of the warp maxima
+  }
+  __syncthreads();
+  const int base = warp > 0 ? warp_sums[warp - 1] : 0;
+  *total = warp_sums[nwarps - 1];
+  __syncthreads();
+  const int before = __shfl_up_sync(0xffffffffu, x, 1);
+  return max(base, lane > 0 ? before : 0);
+}
+
 // Sum of one int per thread across the block, under the same conditions as
 // block_excl_scan.
 __device__ __forceinline__ int block_sum(int v, int* warp_sums) {

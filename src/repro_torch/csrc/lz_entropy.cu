@@ -17,20 +17,43 @@
 // huffman_gap_decode replaces src/repro/kernels/lz_entropy.py:
 // _gap_decode_kernel (launched by huffman_gap_decode_pallas).  The TPU
 // kernel DMAs a fixed window per gap sub-block into VMEM and range-tests
-// all 15 lengths at once on vector lanes.  Here one thread owns one
-// sub-block: it starts at the sub-block's bit offset and walks exactly
-// `sub` codewords, reading a 24-bit window from the stream for each and
-// testing lengths 1..15 in order against the canonical first/count tables,
-// which sit in shared memory with the symbol order map.  The canonical
-// prefix property makes the first hit the only one.  A window with no hit
-// (only past the live codewords of a partial last sub-block) takes length
-// 1, as the reference's argmax over an all-false row does, so the kernel
-// equals its plain version on every lane.  Bytes past the end of the blob
-// read as zeros.  Four decoded bytes are stored as one word.  Bound on the
-// H100: the sequential codeword chain inside a sub-block (latency), far
-// above the bytes moved; at 512 bytes per sub-block a 37 MB section is
-// only ~73 K threads, which leaves most of the card idle.
+// all 15 lengths at once on vector lanes.  Here one lane owns one
+// sub-block and walks exactly `sub` codewords from its bit offset, as the
+// reference's scan does.  Read from device memory byte by byte, a
+// codeword would cost three loads and put a warp's 32 lanes on 32 cache
+// lines (sub-blocks lie ~366 bytes apart): ~96 L1 wavefronts per warp and
+// codeword.  So:
+//
+//   * a block's 64 sub-blocks lie one after another in the stream: the
+//     block copies their bytes into shared memory with coalesced, aligned
+//     16-byte loads, as big-endian words, 33 KB a round (64 sub-blocks of
+//     the stored escape and 1 KB).  A lane decodes while the words it needs
+//     are staged; the next round starts at the least word an unfinished
+//     lane needs, so a code longer than the escape (up to 15 bits, 960
+//     bytes a sub-block) takes more rounds and no more shared memory.
+//     Bytes past the blob's end are staged as zeros;
+//   * a lane keeps its next 64 stream bits in registers and refills them
+//     a staged word at a time (read one word ahead);
+//   * each block builds a 2^10-entry table in shared memory from the
+//     canonical first / count / base / order tables: for every 10-bit
+//     prefix that completes a code of at most 10 bits, (length << 8) |
+//     symbol, the first such length as in the reference's range test; 0
+//     elsewhere.  Where no code is longer than 10 bits, four codewords
+//     decode straight-line, the chain of a codeword one table read and a
+//     shift, and a 0 (an incomplete code, or bits past the live ones)
+//     sends the four back through the range test; with longer codes each
+//     codeword branches to the range test over lengths 11..15 on a 0.  Its
+//     "no hit -> length 1" rule (only past a partial last sub-block's live
+//     codewords) is the reference's argmax over an all-false row, so the
+//     kernel equals its plain version on every lane;
+//   * 16 decoded bytes are one 16-byte store (sub is a multiple of 16:
+//     the container's sub-block is 512 bytes).
+//
+// Bound on the H100: the codeword chain inside a sub-block (a table read,
+// a shift), 512 codewords a lane; the stream and the output are ~0.02 ms
+// of HBM traffic at the main path's size.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -40,7 +63,7 @@ namespace {
 
 constexpr int kHistThreads = 256;
 constexpr int kHistWarps = kHistThreads / 32;
-constexpr int kGapThreads = 128;
+constexpr int kGapThreads = 64;
 constexpr int kMaxCodeLen = 15;
 
 __device__ __forceinline__ void count_word(unsigned int* h, uint32_t w) {
@@ -81,11 +104,63 @@ byte_histogram(const uint8_t* __restrict__ buf, long long head, long long nvec,
   }
 }
 
-__device__ __forceinline__ uint32_t byte_at(const uint8_t* __restrict__ blob, long long n,
-                                            long long p) {
-  return (p >= 0 && p < n) ? blob[p] : 0u;
+constexpr int kLutBits = 10;
+// The staged stream of a block: 64 sub-blocks of the stored escape (512
+// bytes each) and 1 KB, in 4-byte words.
+constexpr int kStageWords = (kGapThreads * 512 + 1024) / 4;
+
+// Four stream bytes as a big-endian word: the stream is MSB-first.
+__device__ __forceinline__ uint32_t bswap(uint32_t x) { return __byte_perm(x, 0, 0x0123); }
+
+// The least ``v`` of the block (64 threads), to every thread.
+__device__ __forceinline__ long long block_min(long long v, long long* s_min) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) s_min[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return min(s_min[0], s_min[1]);
 }
 
+// Four codewords with the range test where the table has no entry: from
+// the bits in hi:lo (nb of them valid, at least 17), refilled from
+// stage[wi...]; their symbols go into ``word`` a byte at a time, on top.
+__device__ __forceinline__ void checked_quad(uint32_t& hi, uint32_t& lo, int& nb, int& wi,
+                                             uint32_t& word, const uint32_t* stage,
+                                             const uint16_t* lut, const int* s_first,
+                                             const int* s_count, const int* s_base,
+                                             const uint8_t* s_order) {
+  for (int j = 0; j < 4; ++j) {
+    if (nb < 32) {
+      const uint32_t x = stage[wi++];
+      hi |= x >> nb;
+      lo |= x << (32 - nb);
+      nb += 32;
+    }
+    const uint32_t e = lut[hi >> (32 - kLutBits)];
+    int len = e >> 8;
+    uint32_t sym = e;
+    if (!e) {  // the range test over the longer lengths
+      const int wv = static_cast<int>(hi >> (32 - kMaxCodeLen));
+      int sidx = s_base[1] + (wv >> (kMaxCodeLen - 1)) - s_first[1];
+      len = 1;
+      for (int l = kLutBits + 1; l <= kMaxCodeLen; ++l) {
+        const int d = (wv >> (kMaxCodeLen - l)) - s_first[l];
+        if (d >= 0 && d < s_count[l]) {
+          len = l;
+          sidx = s_base[l] + d;
+          break;
+        }
+      }
+      sym = s_order[min(max(sidx, 0), 255)];
+    }
+    hi = __funnelshift_l(lo, hi, len);
+    lo <<= len;
+    nb -= len;
+    word = __byte_perm(word, sym, 0x4321);  // the symbol's byte in on top
+  }
+}
+
+// One sub-block a lane; 16 decoded bytes a store (sub a multiple of 16).
 __global__ void __launch_bounds__(kGapThreads)
 gap_decode(const uint8_t* __restrict__ blob, long long blob_len,
            const long long* __restrict__ wstarts, const int32_t* __restrict__ rems, int nsub,
@@ -94,6 +169,9 @@ gap_decode(const uint8_t* __restrict__ blob, long long blob_len,
            uint8_t* __restrict__ out) {
   __shared__ int s_first[kMaxCodeLen + 1], s_count[kMaxCodeLen + 1], s_base[kMaxCodeLen + 1];
   __shared__ uint8_t s_order[256];
+  __shared__ uint16_t lut[1 << kLutBits];
+  __shared__ __align__(16) uint32_t stage[kStageWords];
+  __shared__ long long s_min[kGapThreads / 32];
   if (threadIdx.x <= kMaxCodeLen) {
     s_first[threadIdx.x] = first[threadIdx.x];
     s_count[threadIdx.x] = count[threadIdx.x];
@@ -101,34 +179,124 @@ gap_decode(const uint8_t* __restrict__ blob, long long blob_len,
   }
   for (int i = threadIdx.x; i < 256; i += blockDim.x) s_order[i] = static_cast<uint8_t>(order[i]);
   __syncthreads();
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= nsub) return;
-  long long bit = wstarts[t] * 8 + rems[t];
-  uint32_t* o = reinterpret_cast<uint32_t*>(out + t * sub);
-  uint32_t word = 0;
-  for (int k = 0; k < sub; ++k) {
-    const long long pos = bit >> 3;
-    const uint32_t w24 = (byte_at(blob, blob_len, pos) << 16) |
-                         (byte_at(blob, blob_len, pos + 1) << 8) |
-                         byte_at(blob, blob_len, pos + 2);
-    const int win = static_cast<int>((w24 >> (9 - (bit & 7))) & 0x7FFF);
-    int len = 1;
-    int sidx = s_base[1] + (win >> (kMaxCodeLen - 1)) - s_first[1];
-    for (int l = 1; l <= kMaxCodeLen; ++l) {
-      const int d = (win >> (kMaxCodeLen - l)) - s_first[l];
+  for (int p = threadIdx.x; p < (1 << kLutBits); p += blockDim.x) {
+    uint16_t e = 0;
+    for (int l = 1; l <= kLutBits; ++l) {
+      const int d = (p >> (kLutBits - l)) - s_first[l];
       if (d >= 0 && d < s_count[l]) {
-        len = l;
-        sidx = s_base[l] + d;
+        e = static_cast<uint16_t>((l << 8) | s_order[min(max(s_base[l] + d, 0), 255)]);
         break;
       }
     }
-    sidx = min(max(sidx, 0), 255);
-    word |= static_cast<uint32_t>(s_order[sidx]) << (8 * (k & 3));
-    if ((k & 3) == 3) {
-      o[k >> 2] = word;
-      word = 0;
+    lut[p] = e;
+  }
+  // Codes longer than the table's bits take the range test a codeword at a
+  // time; the others decode four codewords straight-line.
+  bool long_codes = false;
+  for (int l = kLutBits + 1; l <= kMaxCodeLen; ++l) long_codes |= s_count[l] > 0;
+  // Stream words are counted from the aligned 16 bytes at or below the
+  // blob's start, so that a staged word of four is one aligned load.
+  const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(blob) & 15);
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long bit = t < nsub ? (lead + wstarts[t]) * 8 + rems[t] : 0;
+  long long wnext = bit >> 5;  // the next word the lane reads
+  const int skip = static_cast<int>(bit & 31);
+  // The lane's next stream bits, from the top of hi down through lo; nb
+  // of them are valid (-1 before the first two words are read).
+  uint32_t hi = 0, lo = 0, word = 0, q0 = 0, q1 = 0, q2 = 0;
+  int nb = -1;
+  uint8_t* o = out + t * sub;
+  int k = t < nsub ? 0 : sub;
+  long long wbase = block_min(k < sub ? wnext : LLONG_MAX, s_min) & ~3ll;
+  // Rounds: the block stages kStageWords words from the least word any
+  // unfinished lane still needs (its sub-blocks lie one after another, so
+  // one round holds them all unless the code is longer than the stored
+  // escape), and each lane decodes while its words are staged.
+  for (;;) {
+    constexpr int kBatch = 4;  // 16-byte words loaded before any is stored
+    for (int i0 = threadIdx.x; i0 < kStageWords / 4; i0 += kBatch * blockDim.x) {
+      uint4 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * blockDim.x;
+        const long long b0 = 4 * (wbase + 4 * i) - lead;  // blob byte of the first
+        if (i >= kStageWords / 4 || (b0 >= 0 && b0 + 16 <= blob_len)) {
+          v[u] = i < kStageWords / 4 ? *reinterpret_cast<const uint4*>(blob + b0) : make_uint4(0, 0, 0, 0);
+        } else {  // at the blob's two ends: every byte load issued, clamped into it
+          uint32_t x[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const long long q = b0 + j;
+            const uint32_t c = blob_len > 0 ? blob[q < 0 ? 0 : (q < blob_len ? q : blob_len - 1)] : 0;
+            x[j >> 2] |= (q >= 0 && q < blob_len ? c : 0u) << (8 * (j & 3));
+          }
+          v[u] = make_uint4(x[0], x[1], x[2], x[3]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * blockDim.x;
+        if (i < kStageWords / 4)
+          reinterpret_cast<uint4*>(stage)[i] =
+              make_uint4(bswap(v[u].x), bswap(v[u].y), bswap(v[u].z), bswap(v[u].w));
+      }
     }
-    bit += len;
+    __syncthreads();
+    // four codewords need at most two more words: decode while both are staged
+    const long long rel = wnext - wbase;
+    const bool staged = rel >= 0 && rel < kStageWords;
+    int wi = staged ? static_cast<int>(rel) : kStageWords;
+    if (k < sub && nb < 0 && wi + 1 < kStageWords) {
+      const uint32_t w0 = stage[wi], w1 = stage[wi + 1];
+      hi = __funnelshift_l(w1, w0, skip);
+      lo = w1 << skip;
+      nb = 64 - skip;
+      wi += 2;
+    }
+    uint32_t nx = stage[min(wi, kStageWords - 1)];  // the next word, read ahead
+    while (k < sub && nb >= 0 && wi + 1 < kStageWords) {
+      if (long_codes) {  // a branch a codeword
+        checked_quad(hi, lo, nb, wi, word, stage, lut, s_first, s_count, s_base, s_order);
+      } else {
+        // Four codewords from the table alone, straight-line: the chain of
+        // a codeword is a table read and a shift.  A window no code of the
+        // table's bits holds (entry 0: an incomplete code, read past the
+        // live bits) sends the quad back to the range test.
+        const uint32_t hi0 = hi, lo0 = lo, word0 = word;
+        const int nb0 = nb, wi0 = wi;
+        bool miss = false;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (nb < 32) {  // nb >= 17 here: the word lands across hi and lo
+            hi |= nx >> nb;
+            lo |= nx << (32 - nb);
+            nb += 32;
+            nx = stage[min(++wi, kStageWords - 1)];
+          }
+          const uint32_t e = lut[hi >> (32 - kLutBits)];
+          const int len = e >> 8;
+          miss |= e == 0;
+          hi = __funnelshift_l(lo, hi, len);
+          lo <<= len;
+          nb -= len;
+          word = __byte_perm(word, e, 0x4321);  // the symbol's byte in on top
+        }
+        if (miss) {
+          hi = hi0, lo = lo0, word = word0, nb = nb0, wi = wi0;
+          checked_quad(hi, lo, nb, wi, word, stage, lut, s_first, s_count, s_base, s_order);
+          nx = stage[min(wi, kStageWords - 1)];
+        }
+      }
+      k += 4;
+      if ((k & 15) == 0) *reinterpret_cast<uint4*>(o + k - 16) = make_uint4(q0, q1, q2, word);
+      q0 = q1;
+      q1 = q2;
+      q2 = word;
+    }
+    if (staged) wnext = wbase + wi;
+    const int more = k < sub;
+    if (!__syncthreads_or(more)) break;
+    wbase = block_min(more ? wnext : LLONG_MAX, s_min) & ~3ll;
   }
 }
 
@@ -153,17 +321,28 @@ extern "C" int lz_byte_histogram_launch(const void* buf, long long start, long l
 
 // blob (blob_len,) uint8; wstarts (nsub,) int64 window byte starts; rems
 // (nsub,) int32 bit remainders; first/count/base (16,) and order (256,)
-// int32 canonical tables -> out (nsub, sub) uint8, sub a multiple of 4.
+// int32 canonical tables -> out (nsub, sub) uint8, sub a multiple of 16.
 extern "C" int lz_gap_decode_launch(const void* blob, long long blob_len, const void* wstarts,
                                     const void* rems, int nsub, const void* first,
                                     const void* count, const void* base, const void* order,
                                     int sub, void* out, void* stream) {
+  if (sub <= 0 || sub % 16) return cudaErrorInvalidValue;
   if (nsub <= 0) return cudaSuccess;
   const int blocks = (nsub + kGapThreads - 1) / kGapThreads;
+  const auto* b = static_cast<const uint8_t*>(blob);
+  const auto* ws = static_cast<const long long*>(wstarts);
+  const auto* rm = static_cast<const int32_t*>(rems);
+  const auto *f = static_cast<const int32_t*>(first), *c = static_cast<const int32_t*>(count);
+  const auto *ba = static_cast<const int32_t*>(base), *od = static_cast<const int32_t*>(order);
+  auto* o = static_cast<uint8_t*>(out);
   gap_decode<<<blocks, kGapThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(blob), blob_len, static_cast<const long long*>(wstarts),
-      static_cast<const int32_t*>(rems), nsub, static_cast<const int32_t*>(first),
-      static_cast<const int32_t*>(count), static_cast<const int32_t*>(base),
-      static_cast<const int32_t*>(order), sub, static_cast<uint8_t*>(out));
+      b, blob_len, ws, rm, nsub, f, c, ba, od, sub, o);
   return cudaGetLastError();
+}
+
+// Registers a thread and resident blocks per SM of the gap decoder ->
+// out[0], out[1].
+extern "C" int lz_gap_decode_occupancy(void* out) {
+  int* o = static_cast<int*>(out);
+  return kernel_occupancy(gap_decode, kGapThreads, 0, o, o + 1);
 }

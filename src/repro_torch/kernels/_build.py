@@ -46,10 +46,12 @@ SIGNATURES = {
     },
     "lz_decode": {
         "lz_decode_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
+        "lz_decode_occupancy": [_I, _I, _P],
     },
     "lz_entropy": {
         "lz_byte_histogram_launch": [_P, _L, _L, _P, _P],
         "lz_gap_decode_launch": [_P, _L, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P],
+        "lz_gap_decode_occupancy": [_P],
     },
     "lz_bitshuffle": {
         "lz_bitshuffle_launch": [_P, _I, _P, _P],
@@ -62,7 +64,8 @@ SIGNATURES = {
         "lz_fused_occupancy": [_I, _I, _P],
     },
     "lz_decode_mono": {
-        "lz_decode_mono_launch": [_P, _L, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+        "lz_decode_mono_launch": [_P, _L, _I, _I, _P, _P, _P, _L, _I, _I, _P, _P],
+        "lz_decode_mono_occupancy": [_I, _I, _P],
     },
 }
 

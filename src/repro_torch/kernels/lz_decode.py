@@ -1,12 +1,15 @@
 """The decoder kernel: per-chunk aligned sections -> symbols.
 
-The CUDA kernel is ``csrc/lz_decode.cu`` (one thread block per chunk); it
-replaces the TPU kernel ``repro/kernels/lz_decode.py:_decode_kernel``.
+The CUDA kernel is ``csrc/lz_decode.cu`` (one thread block per chunk, the
+decode chain of ``csrc/decode_chunk.cuh``); it replaces the TPU kernel
+``repro/kernels/lz_decode.py:_decode_kernel``.
 ``lz_decode_plain`` is its plain PyTorch version (``core/decode.py``'s
 parallel decoder); ``kernels/ops.py`` chooses by the tensor's device.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -37,7 +40,7 @@ def lz_decode_cuda(flag_bytes, payload, n_tokens, *, symbol_size):
     fb = flag_bytes.to(torch.uint8).contiguous()
     pay = payload.to(torch.uint8).contiguous()
     nt = n_tokens.to(torch.int32).contiguous()
-    out = torch.zeros(n, c, dtype=torch.int32, device=fb.device)
+    out = torch.empty(n, c, dtype=torch.int32, device=fb.device)  # the kernel writes it all
     lib = _build.library("lz_decode")
     code = lib.lz_decode_launch(
         fb.data_ptr(), pay.data_ptr(), nt.data_ptr(), n, c, symbol_size,
@@ -45,3 +48,18 @@ def lz_decode_cuda(flag_bytes, payload, n_tokens, *, symbol_size):
     )
     _build.check(lib, code, "decoder (lz_decode_launch)")
     return out
+
+
+def decode_occupancy(*, symbol_size, chunk_symbols):
+    """{kernel: (registers a thread, resident blocks per SM)} of the two
+    decoders (the split one and the one-launch one) in the shared-memory
+    layout they take at this geometry, from the CUDA occupancy API."""
+    out = (ctypes.c_int * 2)()
+    ptr = ctypes.cast(out, ctypes.c_void_p)
+    res = {}
+    for name in ("lz_decode", "lz_decode_mono"):
+        lib = _build.library(name)
+        fn = getattr(lib, f"{name}_occupancy")
+        _build.check(lib, fn(symbol_size, chunk_symbols, ptr), f"{name} occupancy")
+        res[name] = (out[0], out[1])
+    return res

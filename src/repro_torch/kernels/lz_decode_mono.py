@@ -3,8 +3,9 @@
 The CUDA kernel is ``csrc/lz_decode_mono.cu`` (one thread block per chunk,
 its sections read in place from the blob); it replaces the TPU kernel
 ``repro/kernels/lz_decode_mono.py:_mono_decode_kernel``.  The per-chunk
-section offsets are two cumsums of the A/B tables, taken here as the TPU
-wrapper takes them outside its kernel.  ``lz_decode_mono_plain`` is its
+section offsets are cumsums of the A/B tables, taken here (one cumsum of
+each row's flag sizes and then its payload sizes) as the TPU wrapper takes
+them outside its kernel.  ``lz_decode_mono_plain`` is its
 plain PyTorch version; ``kernels/ops.py`` chooses by the tensor's device.
 
 A chunk's flag window is ``C // 8`` bytes and its payload window ``C * S``
@@ -78,12 +79,14 @@ def lz_decode_mono_cuda(blobs, n_tokens, payload_sizes, *, symbol_size, chunk_sy
     blob = blobs.to(torch.uint8).contiguous()
     nt = n_tokens.to(torch.int32).contiguous()
     psz = payload_sizes.to(torch.int32).contiguous()
-    fofs, pofs = (t.contiguous() for t in section_starts(nt, psz))
+    # section_starts' sums in one cumsum (the kernel takes the starts from
+    # it): each row's flag sizes, then its payload sizes
+    cums = torch.cumsum(torch.cat([(nt + 7) >> 3, psz], 1), 1, dtype=torch.int64)
     out = torch.empty(b, nc, c, dtype=torch.int32, device=blob.device)
     lib = _build.library("lz_decode_mono")
     code = lib.lz_decode_mono_launch(
-        blob.data_ptr(), blob.shape[1], b, nc, nt.data_ptr(), psz.data_ptr(),
-        fofs.data_ptr(), pofs.data_ptr(), c, s, out.data_ptr(), _build.stream(blob),
+        blob.data_ptr(), blob.shape[1], b, nc, nt.data_ptr(), psz.data_ptr(), cums.data_ptr(),
+        fmt.HEADER_BYTES + 8 * nc, c, s, out.data_ptr(), _build.stream(blob),
     )
     _build.check(lib, code, "one-launch decoder (lz_decode_mono_launch)")
     return out

@@ -9,6 +9,8 @@ over sub-blocks); ``kernels/ops.py`` chooses by the tensor's device.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
@@ -116,12 +118,24 @@ def huffman_gap_decode_plain(blob, wstarts, rems, first, count, base, order, *, 
     return out
 
 
+def gap_decode_occupancy():
+    """(registers a thread, resident blocks per SM) of the CUDA gap decoder,
+    from the CUDA occupancy API."""
+    out = (ctypes.c_int * 2)()
+    lib = _build.library("lz_entropy")
+    _build.check(lib, lib.lz_gap_decode_occupancy(ctypes.cast(out, ctypes.c_void_p)),
+                 "gap decoder occupancy")
+    return out[0], out[1]
+
+
 def huffman_gap_decode_cuda(blob, wstarts, rems, first, count, base, order, *, sub: int):
     """The same function by one launch of the CUDA gap decoder."""
     _build.require_cuda("huffman_gap_decode", blob, wstarts, rems, first, count, base, order)
     _gap_args(blob, wstarts, rems, first, count, base, order, sub)
     if blob.dtype != torch.uint8:
         raise ValueError(f"huffman_gap_decode takes a uint8 blob, got {blob.dtype}")
+    if sub % 16:
+        raise ValueError(f"the CUDA gap decoder stores 16 bytes at a time: sub={sub}")
     b = blob.reshape(-1).contiguous()
     ws = wstarts.to(torch.int64).contiguous()
     rm = rems.to(torch.int32).contiguous()

@@ -15,9 +15,10 @@ import pytest
 import torch
 
 from repro_torch import core
-from repro_torch.core import entropy, format as fmt, pipeline as pl
-from repro_torch.data import walk_edges
-from repro_torch.kernels import lz_bitshuffle, lz_decode_mono, lz_entropy, lz_fused, lz_match, ops
+from repro_torch.core import deflate, entropy, format as fmt, pipeline as pl
+from repro_torch.data import decode_edges, walk_edges
+from repro_torch.kernels import (
+    lz_bitshuffle, lz_decode, lz_decode_mono, lz_entropy, lz_fused, lz_match, ops)
 
 GEOMETRIES = [(1, 32, 64), (2, 128, 128), (4, 255, 64), (4, 128, 2048), (2, 255, 32768)]
 LZSS_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode")
@@ -165,6 +166,54 @@ def test_walk_kernels_equal_plain_on_walk_edges(cuda, kind, s, w, c):
     kw.update(cap=fmt.max_compressed_bytes(nc * c * s, s, c), sec_flags=fmt.HEADER_BYTES + 8 * nc)
     mono = lz_fused.lz_fused_mono_cuda(sym[None], **kw)
     assert all(torch.equal(a, b) for a, b in zip(mono, lz_fused.lz_fused_mono_plain(sym[None], **kw)))
+
+
+# ------------------------------------------------ the decoders' edges
+
+# (S, C): C=8 and the main path's C=2048 at every S (the decode chain's
+# staged layout), and the largest chunks the shared-memory fit accepts (its
+# rows layout)
+DECODE_GEOMETRIES = [(1, 8), (2, 8), (4, 8), (1, 2048), (2, 2048), (4, 2048), (4, 38568),
+                     (1, 57856)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", decode_edges.LZ_KINDS)
+@pytest.mark.parametrize("s,c", DECODE_GEOMETRIES)
+def test_decoders_equal_plain_on_decode_edges(cuda, kind, s, c):
+    """The split and the one-launch decoder equal their plain versions, and
+    decode the symbols, on literal-only chunks, the deepest copy chain, a
+    partial last tile of tokens and mixed runs."""
+    nc = 2 if c > 2048 else 8
+    sym, blob, nt, ps = (torch.from_numpy(x).to(cuda) for x in
+                         decode_edges.lz_edge_container(kind, nc, c, s, device=cuda))
+    fs, p64 = (nt.to(torch.int64) + 7) // 8, ps.to(torch.int64)
+    sec = fmt.HEADER_BYTES + 8 * nc
+    flags = deflate.gather_section(blob, sec, fs, torch.cumsum(fs, 0) - fs, c // 8)
+    pay = deflate.gather_section(blob, sec + int(fs.sum()), p64, torch.cumsum(p64, 0) - p64, c * s)
+    got = lz_decode.lz_decode_cuda(flags, pay, nt, symbol_size=s)
+    assert torch.equal(got, lz_decode.lz_decode_plain(flags, pay, nt, symbol_size=s))
+    assert torch.equal(got, sym)
+    args = (blob[None], nt[None], ps[None])
+    kw = dict(symbol_size=s, chunk_symbols=c)
+    got = lz_decode_mono.lz_decode_mono_cuda(*args, **kw)
+    assert torch.equal(got, lz_decode_mono.lz_decode_mono_plain(*args, **kw))
+    assert torch.equal(got[0], sym)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", decode_edges.GAP_KINDS)
+def test_gap_decoder_equals_plain_on_gap_edges(cuda, kind):
+    """The gap decoder equals its plain version on every lane of a code with
+    15-bit codewords, the stored escape, one symbol, partial last
+    sub-blocks and blocks whose stream is staged in more than one round,
+    each stream ending at its blob's last byte."""
+    inp = decode_edges.gap_edge_inputs(kind, device=cuda)
+    args = [inp[k] for k in ("blob", "wstarts", "rems", "first", "count", "base", "order")]
+    got = lz_entropy.huffman_gap_decode_cuda(*args, sub=decode_edges.SUB)
+    assert torch.equal(got, lz_entropy.huffman_gap_decode_plain(*args, sub=decode_edges.SUB))
+    sec = inp["section"]
+    assert np.array_equal(got.reshape(-1)[: sec.size].cpu().numpy(), sec)
 
 
 # ------------------------------------------------ entropy and lossy stages
