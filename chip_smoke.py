@@ -10,7 +10,7 @@ Phases, any failure of which exits non-zero:
   2. build      the eleven kernels' seven sources from src/repro_torch/csrc,
                 ptxas -v lines, and the registers and resident blocks per
                 SM of the three kernels that walk the window, the two LZSS
-                decoders and the gap decoder
+                decoders, the gap decoder and the bitshuffle pair
   3. kernels    each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors, exactly equal (integer outputs): the
                 LZSS kernels (split, one-launch and match-only) at C=2048
@@ -28,7 +28,11 @@ Phases, any failure of which exits non-zero:
                 byte histogram over
                 unaligned ranges of a 37 MB container; the gap decoder on
                 a skewed code, a stored-escape code and partial last
-                sub-blocks; bitshuffle / unshuffle of 1 and 65,536 blocks
+                sub-blocks; bitshuffle / unshuffle on the pair's edge inputs
+                (repro_torch/data/bitshuffle_edges.py: five patterns at
+                block counts around a tile, the one-hot map, 65,536 and
+                65,537 blocks), on views that are not 16-byte aligned and
+                into larger out= buffers
   4. golden     the 12 golden inputs (7 raw, 3 deflate-full, 2 lossy-fz)
                 compress to their .gplz bytes; the 12 current and 7
                 version-1 blobs decode (lossy ones within their bound)
@@ -43,7 +47,8 @@ Phases, any failure of which exits non-zero:
                 (backend="fused-deflate", decoder="fused") and the
                 match-only backend ("cuda-match"); round trips exact or
                 within eb, containers equal to the plain PyTorch path run
-                on the card, and no plain emit tail on the default path
+                on the card, no plain emit tail on the default path, and
+                the bitshuffle pair's pointers 16-byte aligned there
   6. times      host-clock throughput of the main path, the one-launch and
                 split host APIs in turns, a stage breakdown
                 of one raw and one lossy-fz round trip, CUDA-event times of
@@ -55,7 +60,8 @@ Phases, any failure of which exits non-zero:
                 and scan, and the one-launch phases B + C; the two LZSS
                 decoders also on all-literal and long-chain chunks, and the
                 gap decoder also on the container's flag section and on a
-                stored-escape section of the payload's size
+                stored-escape section of the payload's size; beside the
+                bitshuffle pair, a device-to-device copy of its bytes
 
 The last two lines of standard output are the kernels' JSON record and the
 device record {"ok": true, "device": {...}}.
@@ -132,6 +138,10 @@ def main() -> None:
             f"{k} {r} registers a thread, {b} resident blocks per SM" for k, (r, b) in occ.items()))
     r, b = lz_entropy.gap_decode_occupancy()
     print(f"[build] huffman_gap_decode {r} registers a thread, {b} resident blocks per SM")
+    from repro_torch.kernels import lz_bitshuffle
+
+    print("[build] " + ", ".join(f"{k} {r} registers a thread, {b} resident blocks per SM"
+                                 for k, (r, b) in lz_bitshuffle.bitshuffle_occupancy().items()))
 
     # ------------------------------------- kernels against plain versions
     sources = {1: "tpch-string", 2: "hurr-quant", 4: "rtm-float32"}
@@ -599,6 +609,14 @@ def main() -> None:
               f"{lib}, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
               f"({k['bytes']} bytes, {k['ops']} int32 ops), at {k.get('at', f'nc={nc} C={c} S={s} W={w}')}")
     t = {row["name"]: row["ms"] for row in record}
+    # The practical ceiling of a permutation of the bitshuffle pair's bytes:
+    # a device-to-device copy of as many (not the same function: no library
+    # column for it).
+    src8 = torch.empty_like(stage_in["shuffled"])
+    dst8 = torch.empty_like(src8)
+    print(f"[time] {card} | D2D copy of the bitshuffle pair's {src8.numel()} bytes "
+          f"(dst.copy_(src)): {ms(lambda: dst8.copy_(src8), 10):.4f} ms, beside bitshuffle "
+          f"{t['bitshuffle']:.4f} ms and bitunshuffle {t['bitunshuffle']:.4f} ms")
     sel = t["lz_kernel1"] - t["lz_match"]
     print(f"[time] {card} | compressor split, hurr-quant 128 MiB: walk (lz_match) "
           f"{t['lz_match']:.4f} ms, selection + scan (lz_kernel1 - lz_match) {sel:.4f} ms "
@@ -761,22 +779,79 @@ def hold_container_kernels(hurr_quant, err) -> dict:
     gap_case(flat.to(torch.uint8), "flat histogram (stored escape)")
     gap_case(torch.full((5000,), 9, dtype=torch.uint8, device=dev), "one symbol")
 
-    gen = torch.Generator(dev).manual_seed(0)
-    for nb in (1, 65536):
-        units = torch.randint(-(1 << 15), 1 << 15, (nb * 512,), generator=gen, device=dev,
-                              dtype=torch.int32).to(torch.int16)
-        shuffled = lz_bitshuffle.bitshuffle_cuda(units)
-        err["bitshuffle"] = max(err["bitshuffle"],
-                                max_diff(shuffled, lz_bitshuffle.bitshuffle_plain(units)))
-        back = lz_bitshuffle.bitunshuffle_cuda(shuffled)
-        err["bitunshuffle"] = max(err["bitunshuffle"],
-                                  max_diff(back, lz_bitshuffle.bitunshuffle_plain(shuffled)))
-        if not torch.equal(back, units):
-            fail(f"bitunshuffle does not invert bitshuffle at {nb} blocks")
-    print(f"[kernels] bitshuffle / bitunshuffle at 1 and 65536 blocks: max |kernel - plain| "
-          f"{err['bitshuffle']} / {err['bitunshuffle']}")
+    units, shuffled = hold_bitshuffle(err)
     return dict(hist=(buf, sec + f_tot, p_tot), gap=gap_main[:2], gap_flags=gap_flags,
                 gap_escape=gap_escape, units=units, shuffled=shuffled)
+
+
+def hold_bitshuffle(err):
+    """Phase 3 for the bitshuffle pair: both kernels against their plain
+    versions on the pair's edge inputs, on views that are not 16-byte
+    aligned and into larger out= buffers.  Returns the 65,536-block random
+    units and their shuffle, the timing phase's inputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import bitshuffle_edges as edges
+    from repro_torch.kernels import lz_bitshuffle
+
+    dev = torch.device("cuda")
+
+    def hold(units, label, src=None, out=None, uout=None):
+        """``units`` through both kernels (the inverse reads ``src``, a view
+        holding the shuffled bytes, when given); returns the shuffle."""
+        got = lz_bitshuffle.bitshuffle_cuda(units, out=out)
+        want = lz_bitshuffle.bitshuffle_plain(units)
+        err["bitshuffle"] = max(err["bitshuffle"], max_diff(got, want))
+        src = want if src is None else src
+        back = lz_bitshuffle.bitunshuffle_cuda(src, out=uout)
+        err["bitunshuffle"] = max(err["bitunshuffle"],
+                                  max_diff(back, lz_bitshuffle.bitunshuffle_plain(src)))
+        if not torch.equal(back, units):
+            fail(f"bitunshuffle does not invert bitshuffle on {label}")
+        return got
+
+    def tensor(units):
+        return torch.from_numpy(units.view(np.int16).copy()).to(dev)
+
+    cases = 0
+    for pattern in edges.PATTERNS:
+        for nb in edges.BLOCK_COUNTS:
+            hold(tensor(edges.edge_units(pattern, nb, seed=nb)), f"{pattern} x {nb} blocks")
+            cases += 1
+    got = hold(tensor(edges.one_hot_units()), "the one-hot map")
+    if not np.array_equal(got.cpu().numpy(), edges.one_hot_expected()):
+        fail("bitshuffle of the one-hot map breaks the wire layout's rule")
+    gen = torch.Generator(dev).manual_seed(0)
+    for nb in (65537, 65536):
+        units = torch.randint(-(1 << 15), 1 << 15, (nb * 512,), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.int16)
+        shuffled = hold(units, f"{nb} random blocks")
+    # views at a storage offset (not 16-byte aligned) and out= buffers
+    small = tensor(edges.edge_units("random", 4097, seed=5))
+    n = small.numel() * 2
+    ubuf = torch.zeros(small.numel() + 1, dtype=torch.int16, device=dev)
+    ubuf[1:] = small
+    hold(ubuf[1:], "an int16 view at a 1-unit offset")
+    want = lz_bitshuffle.bitshuffle_plain(small)
+    for off in (1, 2, 8):
+        sbuf = torch.zeros(n + off, dtype=torch.uint8, device=dev)
+        sbuf[off:] = want
+        obuf = torch.zeros(n + off + 64, dtype=torch.uint8, device=dev)
+        oubuf = torch.zeros(small.numel() + 2, dtype=torch.int16, device=dev)
+        hold(small, f"uint8 views at a {off}-byte offset", src=sbuf[off:], out=obuf[off:],
+             uout=oubuf[1:])
+        if obuf[:off].any() or obuf[off + n :].any() or oubuf[0] or oubuf[-1]:
+            fail(f"a bitshuffle kernel wrote outside its out= view at offset {off}")
+    big = torch.zeros(shuffled.numel() + 4096, dtype=torch.uint8, device=dev)
+    ubig = torch.zeros(units.numel() + 512, dtype=torch.int16, device=dev)
+    got = hold(units, "65536 blocks into larger out= buffers", out=big, uout=ubig)
+    if got.data_ptr() != big.data_ptr() or big[shuffled.numel() :].any() or ubig[units.numel() :].any():
+        fail("out= of the bitshuffle pair: not the prefix, or the tail written")
+    print(f"[kernels] bitshuffle / bitunshuffle on {cases} edge cases, the one-hot map, 65536 and "
+          f"65537 blocks, misaligned views (1 unit; 1, 2, 8 bytes) and out= buffers: "
+          f"max |kernel - plain| {err['bitshuffle']} / {err['bitunshuffle']}")
+    return units, shuffled
 
 
 def _plain_container(data, cfg):
@@ -821,6 +896,20 @@ def container_main_path(inputs, emit_calls):
         core.decompress(core.compress(batch[0][:MIB], cfg).data)
     torch.cuda.synchronize()
 
+    from repro_torch.kernels import lz_bitshuffle
+
+    misaligned, seen, restore = [], [], []
+    for attr in ("bitshuffle_cuda", "bitunshuffle_cuda"):
+        fn = getattr(lz_bitshuffle, attr)
+
+        def watched(x, out=None, _fn=fn, _attr=attr):
+            seen.append(_attr)
+            if x.data_ptr() % 16 or (out is not None and out.data_ptr() % 16):
+                misaligned.append(_attr)
+            return _fn(x, out)
+
+        setattr(lz_bitshuffle, attr, watched)
+        restore.append((attr, fn))
     ops.reset_launch_counts()
     emits = emit_calls[0]
     results, times = {}, {}
@@ -843,7 +932,13 @@ def container_main_path(inputs, emit_calls):
     blabel = "batch 8 x 8 MiB hurr-field lossy-fz eb=1e-3 inner=deflate-full"
     times[blabel] = (t1 - t0, time.perf_counter() - t1)
     launches = ops.launch_counts()
+    for attr, fn in restore:
+        setattr(lz_bitshuffle, attr, fn)
     print(f"[main] launches on the container path: {launches}")
+    if misaligned or not seen:
+        fail(f"the bitshuffle pair saw pointers that are not 16-byte aligned: {misaligned}")
+    print(f"[main] bitshuffle pair on the container path: {len(seen)} calls, every input and "
+          f"output 16-byte aligned (the kernels' vector path)")
     if any(launches[k] < 1 for k in CONTAINER_KERNELS) or any(
             launches[k] for k in ops.KERNELS if k not in CONTAINER_KERNELS):
         fail(f"the container path did not launch exactly {CONTAINER_KERNELS}: {launches}")
@@ -998,6 +1093,7 @@ def container_kernel_spec(stage_in) -> dict:
     nsub = gap_args[1].numel()
     units, shuffled = stage_in["units"], stage_in["shuffled"]
     n_units = units.numel()
+    sh_out, un_out = torch.empty_like(shuffled), torch.empty_like(units)
     return {
         "byte_histogram": dict(
             kernel=lambda: lz_entropy.byte_histogram_cuda(buf, start, length),
@@ -1020,14 +1116,14 @@ def container_kernel_spec(stage_in) -> dict:
             source="src/repro_torch/csrc/lz_entropy.cu",
             replaces="src/repro/kernels/lz_entropy.py:118"),
         "bitshuffle": dict(
-            kernel=lambda: lz_bitshuffle.bitshuffle_cuda(units),
+            kernel=lambda: lz_bitshuffle.bitshuffle_cuda(units, out=sh_out),
             plain=lambda: lz_bitshuffle.bitshuffle_plain(units),
             library=None, bytes=4 * n_units, ops=16 * n_units,
             at=f"{n_units} units ({n_units // 512} blocks: 128 MiB of f32 in quant mode)",
             source="src/repro_torch/csrc/lz_bitshuffle.cu",
             replaces="src/repro/kernels/lz_bitshuffle.py:32"),
         "bitunshuffle": dict(
-            kernel=lambda: lz_bitshuffle.bitunshuffle_cuda(shuffled),
+            kernel=lambda: lz_bitshuffle.bitunshuffle_cuda(shuffled, out=un_out),
             plain=lambda: lz_bitshuffle.bitunshuffle_plain(shuffled),
             library=None, bytes=4 * n_units, ops=16 * n_units,
             at=f"{n_units} units ({n_units // 512} blocks: 128 MiB of f32 in quant mode)",

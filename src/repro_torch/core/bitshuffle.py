@@ -46,8 +46,10 @@ def padded_units(n_units: int) -> int:
     return -(-max(n_units, 1) // BLOCK_UNITS) * BLOCK_UNITS
 
 
-def shuffle(units, impl=None):
-    """Bit-plane transpose of a padded (N,) int16 unit stream -> (2N,) uint8."""
+def shuffle(units, impl=None, out=None):
+    """Bit-plane transpose of a padded (N,) int16 unit stream -> (2N,) uint8;
+    with ``out`` (a contiguous uint8 tensor of at least 2N bytes), written
+    into its prefix and that prefix returned."""
     _check_impl(impl)
     if units.shape[0] % BLOCK_UNITS:
         raise ValueError(
@@ -55,10 +57,10 @@ def shuffle(units, impl=None):
             f"{units.shape[0]}"
         )
     if impl == "plain":
-        return shuffle_plain(units)
+        return _bshuf.write_into(out, shuffle_plain(units), "bitshuffle")
     from repro_torch.kernels import ops
 
-    return ops.bitshuffle(units)
+    return ops.bitshuffle(units, out)
 
 
 def unshuffle(shuffled, impl=None):

@@ -121,10 +121,9 @@ def compress_lossy(symbols, cfg, orig_bytes=None, *, impl=None):
 
     units = torch.zeros(units_pad, dtype=torch.int16, device=dev)
     units[: units_live.shape[0]] = units_live
-    shuffled = bitshuffle.shuffle(units, impl=impl)
     inner_c = fmt.LOSSY_INNER_CHUNK_SYMBOLS
     inner_bytes = torch.zeros(inner_nc * inner_c * 2, dtype=torch.uint8, device=dev)
-    inner_bytes[: shuffled.shape[0]] = shuffled
+    bitshuffle.shuffle(units, impl=impl, out=inner_bytes)  # the prefix; the tail stays 0
     inner_syms = pipeline.pack_symbols(inner_bytes, 2).reshape(inner_nc, inner_c)
 
     inner_name = pipeline.resolve_backend(cfg.lossy_inner, dev)

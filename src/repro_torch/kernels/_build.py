@@ -56,6 +56,7 @@ SIGNATURES = {
     "lz_bitshuffle": {
         "lz_bitshuffle_launch": [_P, _I, _P, _P],
         "lz_bitunshuffle_launch": [_P, _I, _P, _P],
+        "lz_bitshuffle_occupancy": [_P],
     },
     "lz_fused": {
         "lz_fused_mono_launch": [

@@ -10,6 +10,8 @@ chooses by the tensor's device.  Units are 16-bit patterns held in
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
@@ -67,25 +69,63 @@ def bitunshuffle_plain(shuffled):
     return vals.reshape(nb * BLOCK_UNITS).to(torch.int16)
 
 
-def bitshuffle_cuda(units):
-    """The same function as ``bitshuffle_plain`` by one CUDA launch."""
+def _out(out, n, dtype, device, name):
+    """The (n,) prefix of ``out`` (a fresh tensor when None) that a kernel
+    writes: a contiguous tensor of ``dtype`` on ``device`` holding at least
+    ``n`` elements."""
+    if out is None:
+        return torch.empty(n, dtype=dtype, device=device)
+    if out.dtype != dtype or out.device != device or not out.is_contiguous() or out.numel() < n:
+        raise ValueError(
+            f"{name} out= takes a contiguous {dtype} tensor on {device} of at least {n} "
+            f"elements, got {out.dtype} {tuple(out.shape)} on {out.device}"
+        )
+    return out.reshape(-1)[:n]
+
+
+def write_into(out, result, name):
+    """``result`` copied into the prefix of ``out``, as the kernels write it
+    (the plain versions' ``out=``); ``result`` itself when ``out`` is None."""
+    if out is None:
+        return result
+    prefix = _out(out, result.numel(), result.dtype, result.device, name)
+    prefix.copy_(result)
+    return prefix
+
+
+def bitshuffle_cuda(units, out=None):
+    """The same function as ``bitshuffle_plain`` by one CUDA launch; with
+    ``out``, written into its prefix (see ``_out``) and that prefix returned.
+    Any alignment is exact: pointers that are not 16-byte aligned take the
+    kernel's byte-wise loads and stores."""
     _build.require_cuda("bitshuffle", units)
     u = _units(units)
     nb = u.numel() // BLOCK_UNITS
-    out = torch.empty(nb * BLOCK_BYTES, dtype=torch.uint8, device=u.device)
+    dst = _out(out, nb * BLOCK_BYTES, torch.uint8, u.device, "bitshuffle")
     lib = _build.library("lz_bitshuffle")
-    code = lib.lz_bitshuffle_launch(u.data_ptr(), nb, out.data_ptr(), _build.stream(u))
+    code = lib.lz_bitshuffle_launch(u.data_ptr(), nb, dst.data_ptr(), _build.stream(u))
     _build.check(lib, code, "bitshuffle (lz_bitshuffle_launch)")
-    return out
+    return dst
 
 
-def bitunshuffle_cuda(shuffled):
-    """The same function as ``bitunshuffle_plain`` by one CUDA launch."""
+def bitunshuffle_cuda(shuffled, out=None):
+    """The same function as ``bitunshuffle_plain`` by one CUDA launch; ``out``
+    and alignment as for ``bitshuffle_cuda``."""
     _build.require_cuda("bitunshuffle", shuffled)
     p = _shuffled(shuffled)
     nb = p.numel() // BLOCK_BYTES
-    out = torch.empty(nb * BLOCK_UNITS, dtype=torch.int16, device=p.device)
+    dst = _out(out, nb * BLOCK_UNITS, torch.int16, p.device, "bitunshuffle")
     lib = _build.library("lz_bitshuffle")
-    code = lib.lz_bitunshuffle_launch(p.data_ptr(), nb, out.data_ptr(), _build.stream(p))
+    code = lib.lz_bitunshuffle_launch(p.data_ptr(), nb, dst.data_ptr(), _build.stream(p))
     _build.check(lib, code, "bitunshuffle (lz_bitunshuffle_launch)")
-    return out
+    return dst
+
+
+def bitshuffle_occupancy():
+    """{kernel: (registers a thread, resident CTAs per SM)} of the two CUDA
+    kernels, from the CUDA occupancy API."""
+    out = (ctypes.c_int * 4)()
+    lib = _build.library("lz_bitshuffle")
+    _build.check(lib, lib.lz_bitshuffle_occupancy(ctypes.cast(out, ctypes.c_void_p)),
+                 "bitshuffle occupancy")
+    return {"bitshuffle": (out[0], out[1]), "bitunshuffle": (out[2], out[3])}

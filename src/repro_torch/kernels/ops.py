@@ -141,14 +141,15 @@ def huffman_gap_decode(blob, wstarts, rems, first, count, base, order, *, sub):
     return out
 
 
-def bitshuffle(units):
-    """(N,) int16 units -> (2N,) uint8 bit planes, N % 512 == 0."""
+def bitshuffle(units, out=None):
+    """(N,) int16 units -> (2N,) uint8 bit planes, N % 512 == 0; with
+    ``out``, written into its prefix and that prefix returned."""
     if _on_cpu(units):
-        return _bshuf.bitshuffle_plain(units)
-    out = _bshuf.bitshuffle_cuda(units)
+        return _bshuf.write_into(out, _bshuf.bitshuffle_plain(units), "bitshuffle")
+    res = _bshuf.bitshuffle_cuda(units, out)
     if units.numel():
         LAUNCHES["bitshuffle"] += 1
-    return out
+    return res
 
 
 def bitunshuffle(shuffled):

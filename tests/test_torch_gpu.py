@@ -16,7 +16,7 @@ import torch
 
 from repro_torch import core
 from repro_torch.core import deflate, entropy, format as fmt, pipeline as pl
-from repro_torch.data import decode_edges, walk_edges
+from repro_torch.data import bitshuffle_edges, decode_edges, walk_edges
 from repro_torch.kernels import (
     lz_bitshuffle, lz_decode, lz_decode_mono, lz_entropy, lz_fused, lz_match, ops)
 
@@ -259,17 +259,108 @@ def test_gap_decode_kernel_equals_plain(cuda, kind, n):
     assert np.array_equal(got.reshape(-1)[:n].cpu().numpy(), sec)
 
 
+BITSHUFFLE_CASES = [(p, n) for p in bitshuffle_edges.PATTERNS for n in bitshuffle_edges.BLOCK_COUNTS]
+BITSHUFFLE_CASES += [("random", 65536), ("random", 65537), ("one-hot", bitshuffle_edges.ONE_HOT_BLOCKS)]
+
+
+def _edge_units(pattern, nblocks, device):
+    if pattern == "one-hot":
+        units = bitshuffle_edges.one_hot_units()
+    else:
+        units = bitshuffle_edges.edge_units(pattern, nblocks, seed=nblocks)
+    return torch.from_numpy(units.view(np.int16).copy()).to(device)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("nblocks", [1, 3, 4096])
-def test_bitshuffle_kernels_equal_plain(cuda, nblocks):
-    rng = np.random.default_rng(nblocks)
-    units = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, 512 * nblocks).astype(np.int16))
-    units = units.to(cuda)
+@pytest.mark.parametrize("pattern,nblocks", BITSHUFFLE_CASES)
+def test_bitshuffle_kernels_equal_plain(cuda, pattern, nblocks):
+    units = _edge_units(pattern, nblocks, cuda)
     shuffled = lz_bitshuffle.bitshuffle_cuda(units)
     assert torch.equal(shuffled, lz_bitshuffle.bitshuffle_plain(units))
+    if pattern == "one-hot":
+        assert np.array_equal(shuffled.cpu().numpy(), bitshuffle_edges.one_hot_expected())
     back = lz_bitshuffle.bitunshuffle_cuda(shuffled)
     assert torch.equal(back, lz_bitshuffle.bitunshuffle_plain(shuffled))
     assert torch.equal(back, units)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 2, 8])
+def test_bitshuffle_entry_points_at_every_alignment(cuda, offset):
+    """The C entry points on ragged block counts, with input and output at
+    ``offset`` bytes from a 16-byte boundary (0: the vector path, else the
+    byte path)."""
+    from repro_torch.kernels import _build
+
+    lib, st = _build.library("lz_bitshuffle"), torch.cuda.current_stream().cuda_stream
+    tile = bitshuffle_edges.TILE_BLOCKS
+    for nb in (1, tile - 1, tile + 1, 4097):
+        units = _edge_units("random", nb, cuda)
+        n = units.numel() * 2
+        src, dst = (torch.zeros(n + 16, dtype=torch.uint8, device=cuda) for _ in range(2))
+        src[offset : offset + n] = units.view(torch.uint8)
+        assert lib.lz_bitshuffle_launch(src.data_ptr() + offset, nb, dst.data_ptr() + offset,
+                                        st) == 0
+        shuffled = dst[offset : offset + n].clone()
+        assert torch.equal(shuffled, lz_bitshuffle.bitshuffle_plain(units))
+        src.zero_()
+        assert lib.lz_bitunshuffle_launch(dst.data_ptr() + offset, nb, src.data_ptr() + offset,
+                                          st) == 0
+        assert torch.equal(src[offset : offset + n], units.view(torch.uint8))
+        assert not src[:offset].any() and not src[offset + n :].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 8])
+def test_bitshuffle_kernels_on_misaligned_views(cuda, offset):
+    """A uint8 view at ``offset`` bytes into its storage for the inverse, an
+    int16 view at a 1-unit offset for the shuffle, and ``out=`` views at the
+    same offsets: exact on every one."""
+    units = _edge_units("random", bitshuffle_edges.TILE_BLOCKS + 1, cuda)
+    want = lz_bitshuffle.bitshuffle_plain(units)
+    n = want.numel()
+    ubuf = torch.zeros(units.numel() + 1, dtype=torch.int16, device=cuda)
+    ubuf[1:] = units
+    view = ubuf[1:]
+    assert view.data_ptr() % 16 == 2
+    assert torch.equal(lz_bitshuffle.bitshuffle_cuda(view), want)
+    sbuf = torch.zeros(n + offset, dtype=torch.uint8, device=cuda)
+    sbuf[offset:] = want
+    sview = sbuf[offset:]
+    assert sview.data_ptr() % 16 == offset
+    assert torch.equal(lz_bitshuffle.bitunshuffle_cuda(sview), units)
+    obuf = torch.zeros(n + offset + 5, dtype=torch.uint8, device=cuda)
+    got = lz_bitshuffle.bitshuffle_cuda(view, out=obuf[offset:])
+    assert got.data_ptr() % 16 == offset and torch.equal(got, want)
+    assert not obuf[:offset].any() and not obuf[offset + n :].any()
+    oubuf = torch.zeros(units.numel() + 3, dtype=torch.int16, device=cuda)
+    back = lz_bitshuffle.bitunshuffle_cuda(sview, out=oubuf[1:])
+    assert torch.equal(back, units) and not oubuf[0] and not oubuf[1 + units.numel() :].any()
+
+
+@pytest.mark.gpu
+def test_bitshuffle_kernels_into_out(cuda):
+    """``out=`` into a larger zeroed buffer: the prefix exact, the tail zero,
+    and one launch a shuffle."""
+    units = _edge_units("random", 65537, cuda)
+    want = lz_bitshuffle.bitshuffle_plain(units)
+    buf = torch.zeros(want.numel() + 4096, dtype=torch.uint8, device=cuda)
+    ubuf = torch.zeros(units.numel() + 100, dtype=torch.int16, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.bitshuffle(units, buf)
+    assert ops.launch_counts()["bitshuffle"] == 1
+    back = lz_bitshuffle.bitunshuffle_cuda(got, out=ubuf)
+    assert got.data_ptr() == buf.data_ptr() and torch.equal(got, want)
+    assert not buf[want.numel() :].any()
+    assert back.data_ptr() == ubuf.data_ptr() and torch.equal(back, units)
+    assert not ubuf[units.numel() :].any()
+
+
+@pytest.mark.gpu
+def test_bitshuffle_occupancy(cuda):
+    occ = lz_bitshuffle.bitshuffle_occupancy()
+    assert set(occ) == {"bitshuffle", "bitunshuffle"}
+    assert all(r > 0 and b >= 1 for r, b in occ.values())
 
 
 def _field(n, seed):
