@@ -10,7 +10,8 @@ Phases, any failure of which exits non-zero:
   2. build      the eleven kernels' seven sources from src/repro_torch/csrc,
                 ptxas -v lines, and the registers and resident blocks per
                 SM of the three kernels that walk the window, the two LZSS
-                decoders, the gap decoder and the bitshuffle pair
+                decoders, the gap decoder, the bitshuffle pair, the
+                histogram and Kernel III (with its shared-memory layout)
   3. kernels    each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors, exactly equal (integer outputs): the
                 LZSS kernels (split, one-launch and match-only) at C=2048
@@ -32,7 +33,13 @@ Phases, any failure of which exits non-zero:
                 (repro_torch/data/bitshuffle_edges.py: five patterns at
                 block counts around a tile, the one-hot map, 65,536 and
                 65,537 blocks), on views that are not 16-byte aligned and
-                into larger out= buffers
+                into larger out= buffers; Kernel III and the histogram on
+                their edge inputs (repro_torch/data/scatter_edges.py:
+                literal-only, pointer-only, ragged and mixed chunks at C in
+                {8, 40, 2056, 32768} and either side of the staged layout's
+                limit, S in {1,2,4}, both layouts; byte patterns at every
+                start mod 16 and lengths 0, 1, 15, 16, 17; 64 MiB of one
+                value)
   4. golden     the 12 golden inputs (7 raw, 3 deflate-full, 2 lossy-fz)
                 compress to their .gplz bytes; the 12 current and 7
                 version-1 blobs decode (lossy ones within their bound)
@@ -61,7 +68,10 @@ Phases, any failure of which exits non-zero:
                 decoders also on all-literal and long-chain chunks, and the
                 gap decoder also on the container's flag section and on a
                 stored-escape section of the payload's size; beside the
-                bitshuffle pair, a device-to-device copy of its bytes
+                bitshuffle pair, a device-to-device copy of its bytes;
+                Kernel III alone and through its wrapper, and the histogram
+                alone and through its wrapper, with the L2 hot and cold, on
+                the payload section, the flag section and one value
 
 The last two lines of standard output are the kernels' JSON record and the
 device record {"ok": true, "device": {...}}.
@@ -114,7 +124,7 @@ def main() -> None:
 
     from repro_torch import core
     from repro_torch.core import deflate, format as fmt, pipeline as pl
-    from repro_torch.data import datasets, decode_edges, walk_edges
+    from repro_torch.data import datasets, decode_edges, scatter_edges, walk_edges
     from repro_torch.kernels import (
         _build, lz_decode, lz_decode_mono, lz_entropy, lz_fused, lz_match, lz_scatter, ops)
 
@@ -142,6 +152,12 @@ def main() -> None:
 
     print("[build] " + ", ".join(f"{k} {r} registers a thread, {b} resident blocks per SM"
                                  for k, (r, b) in lz_bitshuffle.bitshuffle_occupancy().items()))
+    r, b = lz_entropy.histogram_occupancy()
+    print(f"[build] byte_histogram {r} registers a thread, {b} resident blocks per SM")
+    for s, c in [(2, 2048)] + [(s, c) for s in (1, 2, 4) for c in scatter_edges.layout_edge(s)]:
+        occ = lz_scatter.scatter_occupancy(chunk_symbols=c, symbol_size=s)
+        print(f"[build] lz_scatter at S={s} C={c}: {occ['registers']} registers a thread, "
+              f"{occ['blocks']} resident blocks per SM, {occ['layout']} layout")
 
     # ------------------------------------- kernels against plain versions
     sources = {1: "tpch-string", 2: "hurr-quant", 4: "rtm-float32"}
@@ -259,6 +275,7 @@ def main() -> None:
         hold(s, w, 32768, 8)
     for s, w, c, nc in ((2, 128, 2048, 64), (4, 255, 2048, 32), (1, 32, 32768, 4)):
         hold_ragged(s, w, c, nc)
+    hold_scatter_edges(err)
     edges = [(kind, s, w, 2048, 32) for kind in walk_edges.KINDS
              for s, w in ((1, 1), (2, 128), (4, 255))]
     edges += [(kind, s, w, c, 2) for s, w, c in ((4, 128, 38568), (1, 255, 57856))
@@ -617,6 +634,59 @@ def main() -> None:
     print(f"[time] {card} | D2D copy of the bitshuffle pair's {src8.numel()} bytes "
           f"(dst.copy_(src)): {ms(lambda: dst8.copy_(src8), 10):.4f} ms, beside bitshuffle "
           f"{t['bitshuffle']:.4f} ms and bitunshuffle {t['bitunshuffle']:.4f} ms")
+    # Kernel III and the histogram alone (their C entry points into
+    # preallocated outputs) beside the wrapper times of their rows; the
+    # histogram also with the L2 cold: a 128 MiB write before each launch,
+    # each launch timed alone.
+    flush = torch.empty(128 * MIB, dtype=torch.uint8, device=dev)
+
+    def ms_cold(fn, reps):
+        fn()
+        evs = []
+        for i in range(reps):
+            flush.fill_(i)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            evs.append((a, b))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in evs) / reps
+
+    stream = torch.cuda.current_stream().cuda_stream
+    lib3, libh = _build.library("lz_scatter"), _build.library("lz_entropy")
+    cargs = [a.contiguous() for a in args3]
+    cargs[3] = cargs[3].view(torch.uint8)
+    pre = torch.zeros(1, cap, dtype=torch.uint8, device=dev)
+    alone = ms(lambda: lib3.lz_scatter_launch(
+        *[a.data_ptr() for a in cargs], 1, nc, c, s, cfg.min_match, kw3["sec_flags"], cap,
+        pre.data_ptr(), stream), 10)
+    if not torch.equal(pre, blob):
+        fail("Kernel III alone (the C entry point) differs from its wrapper")
+    occ = lz_scatter.scatter_occupancy(chunk_symbols=c, symbol_size=s)
+    print(f"[time] {card} | lz_scatter alone (C entry, preallocated blob) {alone:.4f} ms, "
+          f"through the wrapper (its zeroed blob) {t['lz_scatter']:.4f} ms, bound "
+          f"{(17 * pos + 8 * nc + cap) / HBM_BYTES_PER_S * 1e3:.4f} ms; {occ['registers']} "
+          f"registers, {occ['blocks']} blocks per SM, {occ['layout']} layout, at nc={nc} C={c} "
+          f"S={s}")
+    hbuf, hstart, hlen = stage_in["hist"]
+    hout = torch.zeros(256, dtype=torch.int32, device=dev)
+    one_value = torch.full((hlen,), 0x7F, dtype=torch.uint8, device=dev)
+    for label, (b8, start, length) in (
+            ("payload section", (hbuf, hstart, hlen)), ("flag section", stage_in["hist_flags"]),
+            ("one value (0x7F), payload-sized", (one_value, 0, hlen))):
+        def launch():
+            return libh.lz_byte_histogram_launch(b8.data_ptr(), start, length, hout.data_ptr(),
+                                                 stream)
+
+        def wrapper():
+            return lz_entropy.byte_histogram_cuda(b8, start, length)
+
+        print(f"[time] {card} | byte_histogram on the {label} ({length} bytes): alone hot "
+              f"{ms(launch, 10):.4f} ms, cold {ms_cold(launch, 10):.4f} ms; through the wrapper "
+              f"hot {ms(wrapper, 10):.4f} ms, cold {ms_cold(wrapper, 10):.4f} ms; torch.bincount "
+              f"hot {ms(lambda: torch.bincount(b8[start:start + length], minlength=256), 10):.4f}"
+              f" ms; bound {(length + 4 * 256) / HBM_BYTES_PER_S * 1e3:.4f} ms")
     sel = t["lz_kernel1"] - t["lz_match"]
     print(f"[time] {card} | compressor split, hurr-quant 128 MiB: walk (lz_match) "
           f"{t['lz_match']:.4f} ms, selection + scan (lz_kernel1 - lz_match) {sel:.4f} ms "
@@ -780,7 +850,8 @@ def hold_container_kernels(hurr_quant, err) -> dict:
     gap_case(torch.full((5000,), 9, dtype=torch.uint8, device=dev), "one symbol")
 
     units, shuffled = hold_bitshuffle(err)
-    return dict(hist=(buf, sec + f_tot, p_tot), gap=gap_main[:2], gap_flags=gap_flags,
+    return dict(hist=(buf, sec + f_tot, p_tot), hist_flags=(buf, sec, f_tot),
+                gap=gap_main[:2], gap_flags=gap_flags,
                 gap_escape=gap_escape, units=units, shuffled=shuffled)
 
 
@@ -852,6 +923,56 @@ def hold_bitshuffle(err):
           f"65537 blocks, misaligned views (1 unit; 1, 2, 8 bytes) and out= buffers: "
           f"max |kernel - plain| {err['bitshuffle']} / {err['bitunshuffle']}")
     return units, shuffled
+
+
+def hold_scatter_edges(err) -> None:
+    """Phase 3 for Kernel III and the histogram on their edge inputs
+    (repro_torch/data/scatter_edges.py): Kernel III on every kind at every
+    geometry, both shared-memory layouts; the histogram on every pattern at
+    every (start, length) of the ranges and on 64 MiB of one value."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import format as fmt
+    from repro_torch.data import scatter_edges as edges
+    from repro_torch.kernels import lz_entropy, lz_scatter
+
+    dev = torch.device("cuda")
+    layouts = set()
+    for c, s in edges.GEOMETRIES:
+        nc = edges.chunks_for(c)
+        kw = dict(symbol_size=s, min_match=edges.min_match(s),
+                  cap=fmt.max_compressed_bytes(nc * c * s, s, c),
+                  sec_flags=fmt.HEADER_BYTES + 8 * nc)
+        layouts.add(lz_scatter.scatter_occupancy(chunk_symbols=c, symbol_size=s)["layout"])
+        for i, kind in enumerate(edges.KINDS):
+            x = edges.scatter_inputs(kind, 2, nc, c, s, seed=17 * c + 5 * s + i)
+            fo, po = edges.section_offsets(x["n_tokens"], x["payload_sizes"])
+            args = [torch.from_numpy(x[k]).to(dev) for k in
+                    ("symbols", "lengths", "offsets", "emitted", "local_off")]
+            args += [torch.from_numpy(fo).to(dev), torch.from_numpy(po).to(dev)]
+            err["lz_scatter"] = max(err["lz_scatter"], max_diff(
+                lz_scatter.scatter_cuda(*args, **kw), lz_scatter.scatter_plain(*args, **kw)))
+    if layouts != {"staged", "direct"}:
+        fail(f"Kernel III's edges ran the layouts {layouts}, not both")
+    for pattern in edges.HIST_PATTERNS:
+        buf = torch.from_numpy(edges.histogram_bytes(pattern, 64, seed=3)).to(dev)
+        for start, length in edges.RANGES:
+            err["byte_histogram"] = max(err["byte_histogram"], max_diff(
+                lz_entropy.byte_histogram_cuda(buf, start, length),
+                lz_entropy.byte_histogram_plain(buf, start, length)))
+    big = torch.from_numpy(edges.histogram_bytes("one-value", edges.BIG_BYTES)).to(dev)
+    for start in (0, 3):
+        n = big.numel() - start - 5
+        want = torch.from_numpy(np.bincount([0x7F], weights=[n], minlength=256)
+                                .astype(np.int32)).to(dev)
+        err["byte_histogram"] = max(err["byte_histogram"], max_diff(
+            lz_entropy.byte_histogram_cuda(big, start, n), want))
+    print(f"[kernels] Kernel III on its edges ({len(edges.KINDS)} kinds x "
+          f"{len(edges.GEOMETRIES)} geometries, C in "
+          f"{sorted({c for c, _ in edges.GEOMETRIES})}, both layouts): max |kernel - plain| "
+          f"{err['lz_scatter']}; byte_histogram on {len(edges.HIST_PATTERNS)} patterns x "
+          f"{len(edges.RANGES)} ranges and 64 MiB of one value: {err['byte_histogram']}")
 
 
 def _plain_container(data, cfg):

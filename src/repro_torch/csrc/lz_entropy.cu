@@ -6,13 +6,20 @@
 // (launched by byte_histogram_pallas).  The TPU kernel walks 1024-byte
 // tiles in a sequential grid, widened to int32, one-hot-compares each tile
 // with the 256 symbol lanes and accumulates into one revisited block.
-// Here the container is read as bytes, 16 per load where the range is
-// aligned, by a grid-stride loop; each warp counts into its own 256-bin
-// row of shared memory (LZSS flag and payload bytes are dominated by long
-// 0x00 / 0xFF runs, so one row per block would put every thread's atomic
-// on one bin), and each block adds its bins to the global histogram with
-// one atomicAdd per non-empty bin.  Only positions in [start, start+len)
-// count; start need not be aligned.  Bound on the H100: the bytes read.
+// Here one wave of resident blocks reads the range as 16-byte vectors from
+// its first 16-byte boundary on, in grid-stride turns of kHistUnroll loads
+// a lane, with the next turn's loads in flight while a turn is counted
+// (the unaligned ends a byte a thread).  Each warp counts into its own
+// 256-bin row of shared memory: a vector of one byte value is one
+// atomicAdd of 16, a 4-byte word of one value one of 4 (LZSS flag sections
+// are mostly 0x00 / 0xFF runs), any other byte one of 1; each block adds
+// its bins to the global histogram with one atomicAdd per non-empty bin.
+// The loads are streaming (__ldcs, evict-first in L2), so that reading the
+// section evicts its own lines before other dirty ones.  Bound on the H100:
+// the bytes read.  With the L2 cold it takes within about 10% of what the
+// same loads take with no counting (PERF.md); atomics of one warp that meet
+// on one bin cost little on this card.  A row counter holds at most the
+// bytes its warp read, so counts stay exact below 2^31 bytes.
 //
 // huffman_gap_decode replaces src/repro/kernels/lz_entropy.py:
 // _gap_decode_kernel (launched by huffman_gap_decode_pallas).  The TPU
@@ -66,11 +73,25 @@ constexpr int kHistWarps = kHistThreads / 32;
 constexpr int kGapThreads = 64;
 constexpr int kMaxCodeLen = 15;
 
-__device__ __forceinline__ void count_word(unsigned int* h, uint32_t w) {
-  atomicAdd(&h[w & 0xFF], 1u);
-  atomicAdd(&h[(w >> 8) & 0xFF], 1u);
-  atomicAdd(&h[(w >> 16) & 0xFF], 1u);
-  atomicAdd(&h[w >> 24], 1u);
+constexpr int kHistUnroll = 4;  // 16-byte loads a lane issues a turn
+
+// One vector's 16 bytes into the warp's row h.
+__device__ __forceinline__ void count_vec(unsigned int* h, const uint4& v) {
+  const uint32_t rep = (v.x & 0xFF) * 0x01010101u;
+  if (v.x == rep && v.y == rep && v.z == rep && v.w == rep) {
+    atomicAdd(&h[v.x & 0xFF], 16u);
+    return;
+  }
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (w[j] == (w[j] & 0xFF) * 0x01010101u) {
+      atomicAdd(&h[w[j] & 0xFF], 4u);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) atomicAdd(&h[(w[j] >> (8 * k)) & 0xFF], 1u);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kHistThreads)
@@ -86,15 +107,27 @@ byte_histogram(const uint8_t* __restrict__ buf, long long head, long long nvec,
   // buf points at `start`; [0, head) and [head + 16 * nvec, length) are
   // the unaligned ends, read byte by byte
   for (long long i = tid; i < head; i += nthreads) atomicAdd(&h[buf[i]], 1u);
-  const uint4* v = reinterpret_cast<const uint4*>(buf + head);
-  for (long long i = tid; i < nvec; i += nthreads) {
-    const uint4 w = v[i];
-    count_word(h, w.x);
-    count_word(h, w.y);
-    count_word(h, w.z);
-    count_word(h, w.w);
-  }
   for (long long i = head + 16 * nvec + tid; i < length; i += nthreads) atomicAdd(&h[buf[i]], 1u);
+  const uint4* v = reinterpret_cast<const uint4*>(buf + head);
+  uint4 x[kHistUnroll];
+#pragma unroll
+  for (int u = 0; u < kHistUnroll; ++u) {
+    const long long i = tid + u * nthreads;
+    x[u] = i < nvec ? __ldcs(v + i) : make_uint4(0, 0, 0, 0);
+  }
+  for (long long i0 = tid; i0 < nvec; i0 += kHistUnroll * nthreads) {
+    uint4 y[kHistUnroll];  // the next turn, loaded before this one is counted
+#pragma unroll
+    for (int u = 0; u < kHistUnroll; ++u) {
+      const long long i = i0 + (kHistUnroll + u) * nthreads;
+      y[u] = i < nvec ? __ldcs(v + i) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kHistUnroll; ++u) {
+      if (i0 + u * nthreads < nvec) count_vec(h, x[u]);
+      x[u] = y[u];
+    }
+  }
   __syncthreads();
   for (int b = threadIdx.x; b < 256; b += blockDim.x) {
     unsigned int s = 0;
@@ -307,16 +340,33 @@ gap_decode(const uint8_t* __restrict__ blob, long long blob_len,
 extern "C" int lz_byte_histogram_launch(const void* buf, long long start, long long length,
                                         void* out, void* stream) {
   if (length <= 0) return cudaSuccess;
+  static int wave = 0;  // resident blocks on the whole card, asked once
+  if (wave == 0) {
+    int dev, sms, per_sm;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, byte_histogram, kHistThreads, 0);
+    if (err != cudaSuccess) return err;
+    wave = sms * per_sm;
+  }
   const uint8_t* p = static_cast<const uint8_t*>(buf) + start;
   long long head = (16 - static_cast<long long>(reinterpret_cast<uintptr_t>(p) & 15)) & 15;
   if (head > length) head = length;
   const long long nvec = (length - head) / 16;
-  long long blocks = (nvec + kHistThreads - 1) / kHistThreads;
+  long long blocks = (nvec + kHistUnroll * kHistThreads - 1) / (kHistUnroll * kHistThreads);
   if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 8) blocks = 132 * 8;
+  if (blocks > wave) blocks = wave;
   byte_histogram<<<static_cast<int>(blocks), kHistThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       p, head, nvec, length, static_cast<int32_t*>(out));
   return cudaGetLastError();
+}
+
+// Registers a thread and resident blocks per SM of the histogram ->
+// out[0], out[1].
+extern "C" int lz_byte_histogram_occupancy(void* out) {
+  int* o = static_cast<int*>(out);
+  return kernel_occupancy(byte_histogram, kHistThreads, 0, o, o + 1);
 }
 
 // blob (blob_len,) uint8; wstarts (nsub,) int64 window byte starts; rems

@@ -43,6 +43,7 @@ SIGNATURES = {
     "lz_scatter": {
         "lz_global_offsets_launch": [_P, _P, _I, _I, _P, _P, _P, _P],
         "lz_scatter_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P, _P],
+        "lz_scatter_occupancy": [_I, _I, _P],
     },
     "lz_decode": {
         "lz_decode_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
@@ -50,6 +51,7 @@ SIGNATURES = {
     },
     "lz_entropy": {
         "lz_byte_histogram_launch": [_P, _L, _L, _P, _P],
+        "lz_byte_histogram_occupancy": [_P],
         "lz_gap_decode_launch": [_P, _L, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P],
         "lz_gap_decode_occupancy": [_P],
     },

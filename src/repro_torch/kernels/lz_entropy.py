@@ -46,6 +46,16 @@ def byte_histogram_plain(buf, start: int, length: int):
     return hist.index_add_(0, slot, ones)[:N_SYMBOLS]
 
 
+def histogram_occupancy():
+    """(registers a thread, resident blocks per SM) of the CUDA histogram,
+    from the CUDA occupancy API."""
+    out = (ctypes.c_int * 2)()
+    lib = _build.library("lz_entropy")
+    _build.check(lib, lib.lz_byte_histogram_occupancy(ctypes.cast(out, ctypes.c_void_p)),
+                 "histogram occupancy")
+    return out[0], out[1]
+
+
 def byte_histogram_cuda(buf, start: int, length: int):
     """The same function by one launch of the CUDA histogram kernel."""
     _build.require_cuda("byte_histogram", buf)

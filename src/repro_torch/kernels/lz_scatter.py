@@ -9,6 +9,8 @@ from ``core/deflate.py``; ``kernels/ops.py`` chooses by the tensor's device.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core import deflate
@@ -94,6 +96,25 @@ def scatter_plain(symbols, lengths, offsets, emitted, local_off, flag_off, pay_o
     return out.to(torch.uint8).reshape(rows, cap)
 
 
+def scatter_occupancy(*, chunk_symbols: int, symbol_size: int) -> dict:
+    """Kernel III at this geometry: registers a thread, resident blocks per
+    SM (CUDA occupancy API) and its shared-memory layout ("staged": the
+    payload built in shared memory, or "direct")."""
+    out = (ctypes.c_int * 3)()
+    lib = _build.library("lz_scatter")
+    _build.check(lib, lib.lz_scatter_occupancy(chunk_symbols, symbol_size,
+                                               ctypes.cast(out, ctypes.c_void_p)),
+                 "Kernel III occupancy")
+    return dict(registers=out[0], blocks=out[1], layout="staged" if out[2] else "direct")
+
+
+def _aligned(t):
+    """``t`` as the kernel reads it: contiguous from a 16-byte boundary (a
+    copy only where the view is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def scatter_cuda(symbols, lengths, offsets, emitted, local_off, flag_off, pay_off,
                  *, symbol_size, min_match, cap, sec_flags):
     """The same function by one launch of the CUDA Kernel III."""
@@ -107,11 +128,10 @@ def scatter_cuda(symbols, lengths, offsets, emitted, local_off, flag_off, pay_of
     ):
         if tuple(t.shape) != shape:
             raise ValueError(f"Kernel III: {name} has shape {tuple(t.shape)}, expected {shape}")
-    args = [t.to(dtype).contiguous() for t, dtype in (
-        (symbols, torch.int32), (lengths, torch.int32), (offsets, torch.int32),
-        (emitted, torch.uint8), (local_off, torch.int32), (flag_off, torch.int32),
-        (pay_off, torch.int32),
-    )]
+    args = [_aligned(t.to(torch.int32)) for t in (symbols, lengths, offsets)]
+    args.append(_aligned(emitted.view(torch.uint8) if emitted.dtype == torch.bool
+                         else emitted.to(torch.uint8)))
+    args += [_aligned(t.to(torch.int32)) for t in (local_off, flag_off, pay_off)]
     blob = torch.zeros(rows, cap, dtype=torch.uint8, device=symbols.device)
     lib = _build.library("lz_scatter")
     code = lib.lz_scatter_launch(

@@ -16,9 +16,9 @@ import torch
 
 from repro_torch import core
 from repro_torch.core import deflate, entropy, format as fmt, pipeline as pl
-from repro_torch.data import bitshuffle_edges, decode_edges, walk_edges
+from repro_torch.data import bitshuffle_edges, decode_edges, scatter_edges, walk_edges
 from repro_torch.kernels import (
-    lz_bitshuffle, lz_decode, lz_decode_mono, lz_entropy, lz_fused, lz_match, ops)
+    lz_bitshuffle, lz_decode, lz_decode_mono, lz_entropy, lz_fused, lz_match, lz_scatter, ops)
 
 GEOMETRIES = [(1, 32, 64), (2, 128, 128), (4, 255, 64), (4, 128, 2048), (2, 255, 32768)]
 LZSS_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode")
@@ -361,6 +361,86 @@ def test_bitshuffle_occupancy(cuda):
     occ = lz_bitshuffle.bitshuffle_occupancy()
     assert set(occ) == {"bitshuffle", "bitunshuffle"}
     assert all(r > 0 and b >= 1 for r, b in occ.values())
+
+
+# ------------------------------------ Kernel III and the histogram's edges
+
+
+def _scatter_case(kind, c, s, device):
+    nc = scatter_edges.chunks_for(c)
+    x = scatter_edges.scatter_inputs(kind, 2, nc, c, s,
+                                     seed=17 * c + 5 * s + scatter_edges.KINDS.index(kind))
+    fo, po = scatter_edges.section_offsets(x["n_tokens"], x["payload_sizes"])
+    args = [torch.from_numpy(x[k]).to(device) for k in
+            ("symbols", "lengths", "offsets", "emitted", "local_off")]
+    args += [torch.from_numpy(fo).to(device), torch.from_numpy(po).to(device)]
+    kw = dict(symbol_size=s, min_match=scatter_edges.min_match(s),
+              cap=fmt.max_compressed_bytes(nc * c * s, s, c), sec_flags=fmt.HEADER_BYTES + 8 * nc)
+    return args, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", scatter_edges.KINDS)
+@pytest.mark.parametrize("c,s", scatter_edges.GEOMETRIES)
+def test_scatter_kernel_equals_plain_on_edges(cuda, kind, c, s):
+    args, kw = _scatter_case(kind, c, s, cuda)
+    want = lz_scatter.scatter_plain(*args, **kw)
+    assert torch.equal(lz_scatter.scatter_cuda(*args, **kw), want)
+    args[3] = args[3].to(torch.uint8)  # emitted as bytes, not bools
+    assert torch.equal(lz_scatter.scatter_cuda(*args, **kw), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 2, 4])
+def test_scatter_layouts_at_the_edge(cuda, s):
+    """The largest staged chunk and the next multiple of 8 take the two
+    layouts; C=2048 at S=2 (the main path) is staged."""
+    lo, hi = scatter_edges.layout_edge(s)
+    assert lz_scatter.scatter_occupancy(chunk_symbols=lo, symbol_size=s)["layout"] == "staged"
+    assert lz_scatter.scatter_occupancy(chunk_symbols=hi, symbol_size=s)["layout"] == "direct"
+    occ = lz_scatter.scatter_occupancy(chunk_symbols=2048, symbol_size=2)
+    assert occ["layout"] == "staged" and occ["registers"] > 0 and occ["blocks"] >= 1
+
+
+@pytest.mark.gpu
+def test_scatter_kernel_on_misaligned_views(cuda):
+    """Fields at a storage offset are copied to a 16-byte boundary by the
+    wrapper: the same blob."""
+    args, kw = _scatter_case("mixed", 40, 2, cuda)
+    want = lz_scatter.scatter_plain(*args, **kw)
+    shifted = []
+    for t in args:
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=cuda)
+        buf[1:] = t.reshape(-1)
+        shifted.append(buf[1:].reshape(t.shape))
+    assert shifted[0].data_ptr() % 16 == 4
+    assert torch.equal(lz_scatter.scatter_cuda(*shifted, **kw), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", scatter_edges.HIST_PATTERNS)
+def test_histogram_kernel_equals_plain_on_edges(cuda, pattern):
+    buf = torch.from_numpy(scatter_edges.histogram_bytes(pattern, 64, seed=3)).to(cuda)
+    for start, length in scatter_edges.RANGES:
+        got = lz_entropy.byte_histogram_cuda(buf, start, length)
+        assert torch.equal(got, lz_entropy.byte_histogram_plain(buf, start, length)), (start, length)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [0, 3])
+def test_histogram_kernel_on_one_value_at_64_mib(cuda, start):
+    n = scatter_edges.BIG_BYTES
+    buf = torch.from_numpy(scatter_edges.histogram_bytes("one-value", n)).to(cuda)
+    got = lz_entropy.byte_histogram_cuda(buf, start, n - start - 5)
+    want = torch.zeros(256, dtype=torch.int32, device=cuda)
+    want[0x7F] = n - start - 5
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_histogram_occupancy(cuda):
+    regs, blocks = lz_entropy.histogram_occupancy()
+    assert regs > 0 and blocks >= 1
 
 
 def _field(n, seed):
