@@ -11,7 +11,8 @@ Phases, any failure of which exits non-zero:
                 ptxas -v lines, and the registers and resident blocks per
                 SM of the three kernels that walk the window, the two LZSS
                 decoders, the gap decoder, the bitshuffle pair, the
-                histogram and Kernel III (with its shared-memory layout)
+                histogram, Kernel II and Kernel III (with its shared-memory
+                layout)
   3. kernels    each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors, exactly equal (integer outputs): the
                 LZSS kernels (split, one-launch and match-only) at C=2048
@@ -39,7 +40,10 @@ Phases, any failure of which exits non-zero:
                 {8, 40, 2056, 32768} and either side of the staged layout's
                 limit, S in {1,2,4}, both layouts; byte patterns at every
                 start mod 16 and lengths 0, 1, 15, 16, 17; 64 MiB of one
-                value)
+                value); Kernel II on its edge inputs
+                (repro_torch/data/offsets_edges.py: five kinds at nc from 1
+                to 262,144 and 1, 3 and 8 rows, through the wrapper and the
+                C entry point, and on views at every 16-byte residue)
   4. golden     the 12 golden inputs (7 raw, 3 deflate-full, 2 lossy-fz)
                 compress to their .gplz bytes; the 12 current and 7
                 version-1 blobs decode (lossy ones within their bound)
@@ -71,7 +75,11 @@ Phases, any failure of which exits non-zero:
                 bitshuffle pair, a device-to-device copy of its bytes;
                 Kernel III alone and through its wrapper, and the histogram
                 alone and through its wrapper, with the L2 hot and cold, on
-                the payload section, the flag section and one value
+                the payload section, the flag section and one value; Kernel
+                II through its wrapper and alone (its C entry into
+                preallocated outputs) at nc = 32,768, 8 rows of 2,048 and
+                262,144, beside a one-element launch (x.add_(1)) and a
+                device-to-device copy moving as many bytes
 
 The last two lines of standard output are the kernels' JSON record and the
 device record {"ok": true, "device": {...}}.
@@ -154,6 +162,8 @@ def main() -> None:
                                  for k, (r, b) in lz_bitshuffle.bitshuffle_occupancy().items()))
     r, b = lz_entropy.histogram_occupancy()
     print(f"[build] byte_histogram {r} registers a thread, {b} resident blocks per SM")
+    r, b = lz_scatter.global_offsets_occupancy()
+    print(f"[build] lz_global_offsets {r} registers a thread, {b} resident blocks per SM")
     for s, c in [(2, 2048)] + [(s, c) for s in (1, 2, 4) for c in scatter_edges.layout_edge(s)]:
         occ = lz_scatter.scatter_occupancy(chunk_symbols=c, symbol_size=s)
         print(f"[build] lz_scatter at S={s} C={c}: {occ['registers']} registers a thread, "
@@ -276,6 +286,7 @@ def main() -> None:
     for s, w, c, nc in ((2, 128, 2048, 64), (4, 255, 2048, 32), (1, 32, 32768, 4)):
         hold_ragged(s, w, c, nc)
     hold_scatter_edges(err)
+    hold_offsets_edges(err)
     edges = [(kind, s, w, 2048, 32) for kind in walk_edges.KINDS
              for s, w in ((1, 1), (2, 128), (4, 255))]
     edges += [(kind, s, w, c, 2) for s, w, c in ((4, 128, 38568), (1, 255, 57856))
@@ -669,6 +680,39 @@ def main() -> None:
           f"{(17 * pos + 8 * nc + cap) / HBM_BYTES_PER_S * 1e3:.4f} ms; {occ['registers']} "
           f"registers, {occ['blocks']} blocks per SM, {occ['layout']} layout, at nc={nc} C={c} "
           f"S={s}")
+    # Kernel II alone (its C entry into preallocated outputs) beside its
+    # wrapper: its floor is a launch, so beside them a one-element add
+    # launched back to back and a device-to-device copy moving as many bytes
+    # as its bound counts; at the main path's nc, 8 rows of 2,048 (8 x 8 MiB)
+    # and nc = 262,144 (1 GiB at C = 2048, S = 2; synthetic sizes).
+    from repro_torch.data import offsets_edges
+
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    launch_floor = ms(lambda: one.add_(1), 50)
+    for label, rows2, nc2 in (("hurr-quant 128 MiB", 1, nc), ("8 rows of 2,048", 8, 2048),
+                              ("1 row of 262,144 (synthetic)", 1, 262144)):
+        if nc2 == nc and rows2 == 1:
+            nt2, ps2 = args2
+        else:
+            nt2, ps2 = (torch.from_numpy(a).to(dev) for a in
+                        offsets_edges.offsets_inputs("random", rows2, nc2))
+        pre2 = tuple(torch.empty_like(o) for o in lz_scatter.global_offsets_plain(nt2, ps2))
+        alone = ms(lambda: lib3.lz_global_offsets_launch(
+            nt2.data_ptr(), ps2.data_ptr(), rows2, nc2, *(o.data_ptr() for o in pre2), stream), 50)
+        wrapped = ms(lambda: lz_scatter.global_offsets_cuda(nt2, ps2), 50)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(pre2, lz_scatter.global_offsets_plain(nt2, ps2))):
+            fail(f"Kernel II alone (the C entry point) differs from its plain version at {label}")
+        nbytes = 16 * rows2 * nc2 + 8 * rows2
+        src2 = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+        dst2 = torch.empty_like(src2)
+        both = torch.stack([nt2, ps2])
+        print(f"[time] {card} | lz_global_offsets at {label}: alone (C entry, preallocated "
+              f"outputs) {alone:.4f} ms, through the wrapper {wrapped:.4f} ms; "
+              f"x.add_(1) {launch_floor:.4f} ms; D2D copy moving as many bytes ({src2.numel()} "
+              f"read, as many written) {ms(lambda: dst2.copy_(src2), 50):.4f} ms; torch.cumsum "
+              f"of the (2, rows x nc) sizes {ms(lambda: torch.cumsum(both, 2), 50):.4f} ms; "
+              f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} bytes)")
     hbuf, hstart, hlen = stage_in["hist"]
     hout = torch.zeros(256, dtype=torch.int32, device=dev)
     one_value = torch.full((hlen,), 0x7F, dtype=torch.uint8, device=dev)
@@ -973,6 +1017,55 @@ def hold_scatter_edges(err) -> None:
           f"{sorted({c for c, _ in edges.GEOMETRIES})}, both layouts): max |kernel - plain| "
           f"{err['lz_scatter']}; byte_histogram on {len(edges.HIST_PATTERNS)} patterns x "
           f"{len(edges.RANGES)} ranges and 64 MiB of one value: {err['byte_histogram']}")
+
+
+def hold_offsets_edges(err) -> None:
+    """Phase 3 for Kernel II on its edge inputs
+    (repro_torch/data/offsets_edges.py): every kind at every nc and row
+    count through the wrapper and through the C entry point; input views
+    at 4, 8 and 12 bytes past a 16-byte boundary through the wrapper, and
+    all four arrays as such views through the C entry point."""
+    import torch
+
+    from repro_torch.data import offsets_edges as edges
+    from repro_torch.kernels import _build, lz_scatter
+
+    dev = torch.device("cuda")
+    lib = _build.library("lz_scatter")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def hold(nt, ps, out=None):
+        want = lz_scatter.global_offsets_plain(nt, ps)
+        if out is None:
+            got = lz_scatter.global_offsets_cuda(nt, ps)
+        else:
+            got = out
+            _build.check(lib, lib.lz_global_offsets_launch(
+                nt.data_ptr(), ps.data_ptr(), *nt.shape, *(t.data_ptr() for t in out), stream),
+                "Kernel II (lz_global_offsets_launch)")
+        err["lz_global_offsets"] = max(err["lz_global_offsets"],
+                                       *(max_diff(a, b) for a, b in zip(got, want)))
+        return want
+
+    for kind, rows, nc in edges.edge_cases():
+        nt, ps = (torch.from_numpy(a).to(dev) for a in edges.offsets_inputs(kind, rows, nc))
+        want = hold(nt, ps)
+        hold(nt, ps, out=tuple(torch.full_like(t, -7) for t in want))
+    views = 0
+    for shift in edges.VIEW_BYTES:
+        for kind, rows, nc in (("random", 3, 1025), ("ragged", 8, 33), ("last", 1, 16385),
+                               ("random", 1, 32769), ("literals", 8, 262144)):
+            nt, ps = (torch.from_numpy(a).to(dev) for a in edges.offsets_inputs(kind, rows, nc))
+            want = lz_scatter.global_offsets_plain(nt, ps)
+            vt, vp = edges.view_at(nt, shift), edges.view_at(ps, shift)
+            for a, b in ((vt, vp), (vt, ps), (nt, vp)):
+                hold(a, b)
+            hold(vt, vp, out=tuple(edges.view_at(torch.full_like(t, -7), shift) for t in want))
+            views += 4
+    print(f"[kernels] Kernel II on its edges ({len(edges.KINDS)} kinds x {len(edges.NCS)} nc "
+          f"from {min(edges.NCS)} to {max(edges.NCS)} x rows {edges.ROWS}, through the wrapper "
+          f"and the C entry; {views} calls on views at {edges.VIEW_BYTES} bytes past 16): max "
+          f"|kernel - plain| {err['lz_global_offsets']}")
 
 
 def _plain_container(data, cfg):

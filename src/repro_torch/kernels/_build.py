@@ -42,6 +42,7 @@ SIGNATURES = {
     },
     "lz_scatter": {
         "lz_global_offsets_launch": [_P, _P, _I, _I, _P, _P, _P, _P],
+        "lz_global_offsets_occupancy": [_P],
         "lz_scatter_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P, _P],
         "lz_scatter_occupancy": [_I, _I, _P],
     },
@@ -150,7 +151,8 @@ def build_all() -> dict:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``."""
-    return build_all()[name]
+    lib = _LIBS.get(name)
+    return lib if lib is not None else build_all()[name]
 
 
 def ptxas_report() -> dict:

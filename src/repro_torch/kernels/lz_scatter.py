@@ -36,8 +36,21 @@ def global_offsets_plain(n_tokens, payload_sizes):
     return fcsum - fs, pcsum - ps + f_tot[:, None], torch.stack([f_tot, p_tot], 1)
 
 
+def _int32(t):
+    """``t`` as int32, contiguous and from a 16-byte boundary; itself, with
+    no call, where it is."""
+    if t.dtype != torch.int32:
+        t = t.to(torch.int32)
+    if not t.is_contiguous():
+        t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def global_offsets_cuda(n_tokens, payload_sizes):
-    """The same function by one launch of the CUDA Kernel II."""
+    """The same function by one launch of the CUDA Kernel II.  int32
+    contiguous inputs from a 16-byte boundary are passed as they are; a view
+    that starts elsewhere is copied, as the kernel takes its four arrays at
+    one residue mod 16 and the outputs are fresh."""
     _build.require_cuda("Kernel II", n_tokens, payload_sizes)
     if n_tokens.dim() != 2 or n_tokens.shape != payload_sizes.shape:
         raise ValueError(
@@ -45,8 +58,7 @@ def global_offsets_cuda(n_tokens, payload_sizes):
             f"{tuple(n_tokens.shape)} and {tuple(payload_sizes.shape)}"
         )
     rows, nc = n_tokens.shape
-    nt = n_tokens.to(torch.int32).contiguous()
-    ps = payload_sizes.to(torch.int32).contiguous()
+    nt, ps = _int32(n_tokens), _int32(payload_sizes)
     flag_off = torch.empty_like(nt)
     pay_off = torch.empty_like(nt)
     totals = torch.empty(rows, 2, dtype=torch.int32, device=nt.device)
@@ -57,6 +69,16 @@ def global_offsets_cuda(n_tokens, payload_sizes):
     )
     _build.check(lib, code, "Kernel II (lz_global_offsets_launch)")
     return flag_off, pay_off, totals
+
+
+def global_offsets_occupancy() -> tuple:
+    """(registers a thread, resident blocks per SM) of the CUDA Kernel II,
+    from the CUDA occupancy API."""
+    out = (ctypes.c_int * 2)()
+    lib = _build.library("lz_scatter")
+    _build.check(lib, lib.lz_global_offsets_occupancy(ctypes.cast(out, ctypes.c_void_p)),
+                 "Kernel II occupancy")
+    return out[0], out[1]
 
 
 # ----------------------------------------------------------- Kernel III

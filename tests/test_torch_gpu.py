@@ -16,9 +16,10 @@ import torch
 
 from repro_torch import core
 from repro_torch.core import deflate, entropy, format as fmt, pipeline as pl
-from repro_torch.data import bitshuffle_edges, decode_edges, scatter_edges, walk_edges
+from repro_torch.data import (
+    bitshuffle_edges, decode_edges, offsets_edges, scatter_edges, walk_edges)
 from repro_torch.kernels import (
-    lz_bitshuffle, lz_decode, lz_decode_mono, lz_entropy, lz_fused, lz_match, lz_scatter, ops)
+    _build, lz_bitshuffle, lz_decode, lz_decode_mono, lz_entropy, lz_fused, lz_match, lz_scatter, ops)
 
 GEOMETRIES = [(1, 32, 64), (2, 128, 128), (4, 255, 64), (4, 128, 2048), (2, 255, 32768)]
 LZSS_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode")
@@ -441,6 +442,80 @@ def test_histogram_kernel_on_one_value_at_64_mib(cuda, start):
 def test_histogram_occupancy(cuda):
     regs, blocks = lz_entropy.histogram_occupancy()
     assert regs > 0 and blocks >= 1
+
+
+# ------------------------------------------------------------- Kernel II
+
+
+def _offsets_entry(nt, ps, out):
+    """Kernel II through its C entry point into ``out``."""
+    lib = _build.library("lz_scatter")
+    rows, nc = nt.shape
+    code = lib.lz_global_offsets_launch(nt.data_ptr(), ps.data_ptr(), rows, nc,
+                                        *(t.data_ptr() for t in out),
+                                        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return code
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc", offsets_edges.NCS)
+@pytest.mark.parametrize("kind", offsets_edges.KINDS)
+def test_offsets_kernel_equals_plain_on_edges(cuda, kind, nc):
+    """Through the wrapper and through the C entry point."""
+    for rows in offsets_edges.ROWS:
+        nt, ps = (torch.from_numpy(a).to(cuda) for a in
+                  offsets_edges.offsets_inputs(kind, rows, nc))
+        want = lz_scatter.global_offsets_plain(nt, ps)
+        assert all(torch.equal(a, b) for a, b in zip(lz_scatter.global_offsets_cuda(nt, ps), want))
+        out = tuple(torch.full_like(t, -7) for t in want)
+        assert _offsets_entry(nt, ps, out) == 0
+        assert all(torch.equal(a, w) for a, w in zip(out, want)), rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", offsets_edges.VIEW_BYTES)
+def test_offsets_kernel_on_misaligned_views(cuda, shift):
+    """The wrapper on input views at every 16-byte residue, alike and
+    unlike; the C entry on four arrays at one residue: the same offsets,
+    and no byte written outside."""
+    view = offsets_edges.view_at
+    for kind, rows, nc in (("random", 3, 1025), ("ragged", 8, 33), ("last", 1, 16385),
+                           ("random", 1, 32769), ("literals", 8, 5), ("random", 3, 65541)):
+        nt, ps = (torch.from_numpy(a).to(cuda) for a in
+                  offsets_edges.offsets_inputs(kind, rows, nc))
+        want = lz_scatter.global_offsets_plain(nt, ps)
+        for a, b in ((view(nt, shift), view(ps, shift)), (view(nt, shift), ps),
+                     (nt, view(ps, shift))):
+            got = lz_scatter.global_offsets_cuda(a, b)
+            assert all(torch.equal(x, w) for x, w in zip(got, want)), (kind, rows, nc)
+        bufs = [torch.full((t.numel() + 8,), -7, dtype=torch.int32, device=cuda) for t in want]
+        out = [buf[k : k + t.numel()].view(t.shape) for buf, t, k in
+               zip(bufs, want, (shift // 4, shift // 4 + 4, 3))]
+        assert _offsets_entry(view(nt, shift), view(ps, shift), out) == 0
+        for buf, o, w in zip(bufs, out, want):
+            assert torch.equal(o, w), (kind, rows, nc)
+            assert int((buf != -7).sum()) == w.numel()
+
+
+@pytest.mark.gpu
+def test_offsets_entry_refuses_mixed_residues(cuda):
+    """The C entry takes its four (rows, nc) arrays at one residue mod 16."""
+    nt = torch.zeros(2, 5, dtype=torch.int32, device=cuda)
+    view = offsets_edges.view_at
+    out = [torch.full((2, 5), -7, dtype=torch.int32, device=cuda) for _ in range(2)]
+    out.append(torch.full((2, 2), -7, dtype=torch.int32, device=cuda))
+    for args in ((view(nt, 4), nt, out), (nt, view(nt, 8), out),
+                 (nt, nt, [view(out[0], 12), out[1], out[2]]),
+                 (nt, nt, [out[0], view(out[1], 4), out[2]])):
+        assert _offsets_entry(*args) != 0
+    assert all(bool((o == -7).all()) for o in out)
+
+
+@pytest.mark.gpu
+def test_offsets_occupancy(cuda):
+    regs, blocks = lz_scatter.global_offsets_occupancy()
+    assert 0 < regs <= 64 and blocks >= 1
 
 
 def _field(n, seed):
