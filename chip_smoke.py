@@ -60,6 +60,21 @@ Phases, any failure of which exits non-zero:
                 within eb, containers equal to the plain PyTorch path run
                 on the card, no plain emit tail on the default path, and
                 the bitshuffle pair's pointers 16-byte aligned there
+  5b. modules   the codec's modules, one path each, the launch counts set
+                to 0 before it and read after it (each must launch its
+                kernels): the chunk-geometry tuner (the one-launch pair
+                against its plain versions at every C of the ladder, S in
+                {1,2,4}, on the sweep's 32 MiB inputs; the joint sweeps over
+                C in both directions at S=2 and 4 with each candidate's
+                time, the cache validated and re-read with zero sweeps;
+                hurr-quant 128 MiB at the tuned C equal to the plain path);
+                ParamSelector over the datasets on the card and on the CPU
+                (equal picks and ratios); the "sharded" batch layer and
+                deflate-full with meshes of one and two cuda:0 at B=3, equal
+                to the unsharded compress_many; the Fig. 8-10 twins (fig8
+                at 128 KiB / 64 KiB with the recorded ratios, fig9 and
+                fig10 at 1 MiB and at 128 MiB, JSONs to chiprun_out/); the
+                Prefetcher on the card over 4 steps
   6. times      host-clock throughput of the main path, the one-launch and
                 split host APIs in turns, a stage breakdown
                 of one raw and one lossy-fz round trip, CUDA-event times of
@@ -536,6 +551,17 @@ def main() -> None:
         print(f"[time] {card} | stage {label}: {t:.3f} ms, hurr-quant 128 MiB")
     lossy_stage_breakdown(inputs["hurr-field"], card)
 
+    # ------------------------------ the codec's modules: one path each
+    seconds = {}
+    for phase in (autotune_phase, params_phase, sharded_phase, twins_phase, data_phase):
+        t0 = time.perf_counter()
+        phase(inputs, card, err)
+        seconds[phase.__name__[: -len("_phase")]] = time.perf_counter() - t0
+    if any(err.values()):
+        fail(f"a kernel disagrees with its plain version: {err}")
+    print(f"[phases] {card} | seconds of the module phases: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+
     # ------------------------------------------------- per-kernel times
     cfg = core.LZSSConfig()
     s, w, c = cfg.symbol_size, cfg.window, cfg.chunk_symbols
@@ -777,6 +803,259 @@ def main() -> None:
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def path_launches(label, want, fn):
+    """Run ``fn`` with the launch counts set to 0 before it and read after
+    it; fail unless every kernel of ``want`` was launched.  Returns what
+    ``fn`` returned."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = fn()
+    made = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"[{label}] launches: {made}")
+    missing = [k for k in want if not made.get(k)]
+    if missing:
+        fail(f"{label}: {missing} not launched on its path: {made}")
+    return out
+
+
+def autotune_phase(inputs, card, err) -> None:
+    """The chunk-geometry tuner on the card: the joint sweeps over C for
+    both directions at S = 2 and 4 (each candidate's time printed), the
+    cache written, validated and re-read with zero sweeps; the one-launch
+    pair against its plain versions at every C of the ladder, S in {1, 2,
+    4}, on the sweep's own inputs first; then hurr-quant 128 MiB at the
+    chosen C, the container equal to the plain path's."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import core
+    from repro_torch.core import autotune, pipeline as pl
+    from repro_torch.kernels import lz_decode_mono, lz_fused
+
+    # the pair at the sweep's shapes (32 MiB: nc = 65,536 at C = 512, S = 1)
+    kind = autotune.device_kind()
+    for s in (1, 2, 4):
+        dtype = autotune.default_dtype(s)
+        enc = autotune.sweep_inputs(autotune.TuneKey(kind, dtype, s, 128, "compress", None))
+        lit = autotune.sweep_inputs(autotune.TuneKey(kind, dtype, s, 0, "decompress", None))
+        for c in autotune.CHUNK_SYMBOL_CANDIDATES:
+            (sym,), kw = enc(c)
+            mono = lz_fused.lz_fused_mono_cuda(sym, **kw)
+            err["lz_fused_mono"] = max(err["lz_fused_mono"], *(
+                max_diff(a, b) for a, b in zip(mono, lz_fused.lz_fused_mono_plain(sym, **kw))))
+            live = kw["sec_flags"] + int(mono[3].sum())
+            cases = [(mono[0][:, :live].contiguous(), mono[1], mono[2], sym)]
+            cases.append((*lit(c)[0], None))  # the sweep's all-literal container
+            for b, t, p, want in cases:
+                d = lz_decode_mono.lz_decode_mono_cuda(b, t, p, symbol_size=s, chunk_symbols=c)
+                err["lz_decode_mono"] = max(err["lz_decode_mono"], max_diff(
+                    d, lz_decode_mono.lz_decode_mono_plain(b, t, p, symbol_size=s, chunk_symbols=c)))
+                if want is not None and not torch.equal(d, want):
+                    fail(f"the one-launch decoder does not invert the compressor at S={s} C={c}")
+            print(f"[autotune] one-launch pair at S={s} C={c} nc={sym.shape[1]} (the sweep's "
+                  f"inputs): max |kernel - plain| {err['lz_fused_mono']} / {err['lz_decode_mono']}")
+            del mono, cases
+        del enc, lit
+    if err["lz_fused_mono"] or err["lz_decode_mono"]:
+        fail(f"the one-launch pair disagrees with its plain versions: {err}")
+
+    tmp = tempfile.mkdtemp(prefix="gpulz-autotune-")
+    saved = {k: os.environ.get(k) for k in (autotune.ENABLE_ENV, autotune.CACHE_ENV)}
+    os.environ[autotune.ENABLE_ENV] = "1"
+    os.environ[autotune.CACHE_ENV] = os.path.join(tmp, "autotune.json")
+    timings = {}
+    real = autotune._default_measure
+
+    def recording(key, nbytes=None):
+        m = real(key, nbytes)
+
+        def measure(c, g):
+            timings[(key.direction, key.symbol_size, c)] = t = m(c, g)
+            return t
+
+        return measure
+
+    autotune._default_measure = recording
+    try:
+        autotune.reset()
+
+        def sweeps():
+            chosen = {}
+            for s in (2, 4):
+                cfg = pl.tuned_config(s, 128)
+                chosen[("compress", s)] = (cfg.chunk_symbols, cfg.chunks_per_block)
+                chosen[("decompress", s)] = autotune.best_geometry(autotune.TuneKey(
+                    kind, autotune.default_dtype(s), s, 0, "decompress", None))
+            return chosen
+
+        chosen = path_launches("autotune", ("lz_fused_mono", "lz_decode_mono"), sweeps)
+        for (direction, s), (c, g) in chosen.items():
+            cells = ", ".join(f"C={cc} {timings[(direction, s, cc)] * 1e3:.4f} ms"
+                              for cc in autotune.CHUNK_SYMBOL_CANDIDATES)
+            print(f"[autotune] {card} | {direction} S={s}, {autotune.SWEEP_BYTES} bytes a "
+                  f"candidate, best of 2 after 1 warm-up, CUDA events around each call: "
+                  f"{cells}; chosen C={c} (g={g})")
+        want_sweeps = {k: 1 for k in autotune._SWEEPS}
+        if len(want_sweeps) != 4:
+            fail(f"autotune: expected 4 sweeps, made {autotune._SWEEPS}")
+        path = autotune.cache_path()
+        with open(path) as f:
+            autotune.validate_cache(json.load(f))
+        n_timed = len(timings)
+        if sweeps() != chosen or autotune._SWEEPS != want_sweeps or len(timings) != n_timed:
+            fail("autotune: the memoised second call swept again or chose otherwise")
+        autotune.reset()
+        if sweeps() != chosen or autotune._SWEEPS or len(timings) != n_timed:
+            fail("autotune: after reset() the cache was not read back without a sweep")
+        print(f"[autotune] cache {path} valid ({len(json.load(open(path))['entries'])} entries); "
+              f"the memo and, after reset(), the file answered with zero sweeps")
+
+        c = chosen[("compress", 2)][0]
+        data = inputs["hurr-quant"]
+        cfg = pl.tuned_config(2, 128)
+        res = path_launches("autotune", ("lz_fused_mono",), lambda: core.compress(
+            data, core.LZSSConfig(chunk_symbols=c, chunks_per_block=cfg.chunks_per_block,
+                                  backend="fused-mono")))
+        plain = core.compress(data, core.LZSSConfig(chunk_symbols=c, backend="torch"))
+        if not np.array_equal(res.data, plain.data):
+            fail(f"autotune: the container at the tuned C={c} differs from the plain path's")
+        if not np.array_equal(core.decompress(res.data), data):
+            fail(f"autotune: the container at the tuned C={c} does not decode exactly")
+        print(f"[autotune] hurr-quant 128 MiB at the tuned C={c}: ratio {res.ratio!r}, "
+              f"equal to the plain path, exact round trip")
+    finally:
+        autotune._default_measure = real
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def params_phase(inputs, card, err) -> None:
+    """ParamSelector over the six datasets, 2 MiB each in two fields, on the
+    card and on the CPU: the same configs field by field, equal ratios."""
+    from repro_torch import core
+    from repro_torch.data import datasets
+
+    def feed(device):
+        out = {}
+        for name, (_, dtype) in datasets.DATASETS.items():
+            data = datasets.load(name, 2 * MIB)
+            sel = core.ParamSelector(dtype=dtype)
+            picks = [sel.observe(data[i * MIB : (i + 1) * MIB], device=device) for i in range(2)]
+            out[name] = (picks, sel.current_config(), sel._ratios)
+        return out
+
+    on_card = path_launches("params", ("lz_fused_mono",), lambda: feed("cuda"))
+    on_cpu = feed("cpu")
+    for name, (picks, nxt, ratios) in on_card.items():
+        if (picks, nxt, ratios) != on_cpu[name]:
+            fail(f"params: {name} picks {picks} / {ratios} on the card, {on_cpu[name]} on the CPU")
+        print(f"[params] {name}: fields at (S, W) {[(p.symbol_size, p.window) for p in picks]}, "
+              f"ratios {ratios}, next (S={nxt.symbol_size}, W={nxt.window}); equal on the CPU")
+
+
+def sharded_phase(inputs, card, err) -> None:
+    """The batch layer on one card: B = 3 buffers of 8 MiB through
+    "sharded" with mesh=(cuda:0,) and (cuda:0, cuda:0) (B padded to 4), and
+    deflate-full with the two-shard mesh, each equal to the unsharded
+    compress_many byte for byte and decoded exactly."""
+    import numpy as np
+    import torch
+
+    from repro_torch import core
+
+    hq = inputs["hurr-quant"]
+    items = [hq[i * 8 * MIB : (i + 1) * 8 * MIB] for i in range(3)]
+    items[2] = items[2][: 8 * MIB - 12345]
+    cuda0 = torch.device("cuda", 0)
+
+    def run():
+        for base in (core.LZSSConfig(), core.LZSSConfig(backend="deflate-full")):
+            plain = core.compress_many(items, base)
+            meshes = ((cuda0,), (cuda0, cuda0)) if base.backend == "auto" else ((cuda0, cuda0),)
+            for mesh in meshes:
+                cfg = core.LZSSConfig(backend="sharded", mesh=mesh) if base.backend == "auto" \
+                    else core.LZSSConfig(backend="deflate-full", mesh=mesh)
+                got = core.compress_many(items, cfg)
+                if not (np.array_equal(got.data, plain.data)
+                        and list(got.total_bytes) == list(plain.total_bytes)):
+                    fail(f"sharded: {base.backend} with mesh {mesh} differs from unsharded")
+                outs = core.decompress_many(got, mesh=mesh)
+                if not all(np.array_equal(o, x) for o, x in zip(outs, items)):
+                    fail(f"sharded: {base.backend} with mesh {mesh} does not decode exactly")
+                print(f"[sharded] {cfg.backend} B=3 x 8 MiB, mesh of {len(mesh)} x cuda:0: "
+                      f"equal to the unsharded compress_many (ratio {got.ratio!r}), exact")
+
+    path_launches("sharded", ("lz_fused_mono", "lz_decode_mono", "byte_histogram",
+                              "huffman_gap_decode"), run)
+
+
+def twins_phase(inputs, card, err) -> None:
+    """The Fig. 8-10 twins on the card: fig8 at 128 KiB / 64 KiB (the
+    recorded ratios, exact), fig9 and fig10 at the reference's defaults
+    (1 MiB, 64 KiB sweeps) and at 128 MiB of hurr-quant; JSONs to
+    chiprun_out/."""
+    from repro_torch.benchmarks import fig8_ratio, fig9_throughput, fig10_decode
+
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+
+    def run():
+        rec = fig8_ratio.run(nbytes=131072, sweep_nbytes=65536,
+                             out_json=str(out / "BENCH_torch_ratio.json"))
+        for key, entry in rec["backends"].items():
+            want = 3.5259052025609297 if key == "deflate-full" else 2.431491856194116
+            if entry["ratio"] != want:
+                fail(f"twins: fig8 {key} ratio {entry['ratio']!r} != {want!r}")
+        print(f"[twins] fig8: {len(rec['backends'])} backends, every method-0 ratio "
+              f"2.431491856194116, deflate-full 3.5259052025609297")
+        recs = {}
+        for label, nbytes in (("1 MiB", MIB), ("128 MiB", 128 * MIB)):
+            tag = "" if nbytes == MIB else "_128mib"
+            sweep = 1 << 16 if nbytes == MIB else nbytes
+            recs["fig9", label] = fig9_throughput.run(
+                nbytes=nbytes, sweep_nbytes=sweep,
+                out_json=str(out / f"BENCH_torch_pipeline{tag}.json"))
+            recs["fig10", label] = fig10_decode.run(
+                nbytes=nbytes, sweep_nbytes=sweep,
+                out_json=str(out / f"BENCH_torch_decode{tag}.json"))
+        for (fig, label), rec in recs.items():
+            entries = rec["backends" if fig == "fig9" else "decoders"]
+            cells = ", ".join(f"{k} {v['gb_per_s']:.4f} GB/s ({v['nbytes']} bytes)"
+                              for k, v in entries.items())
+            print(f"[twins] {card} | {fig} at {label}: {cells}; host API, host clock")
+
+    path_launches("twins", RAW_KERNELS + ("byte_histogram", "huffman_gap_decode"), run)
+
+
+def data_phase(inputs, card, err) -> None:
+    """The data pipeline's Prefetcher on the card over 4 steps: int32
+    tensors on cuda equal to make_batch_for_step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import pipeline as data_pipeline
+
+    cfg = data_pipeline.DataConfig(vocab_size=32000, seq_len=2048, global_batch=8, seed=0)
+    pre = data_pipeline.Prefetcher(cfg, start_step=10, device="cuda")
+    for step in range(10, 14):
+        got = pre.next()["tokens"]
+        if got.device.type != "cuda" or got.dtype != torch.int32 or not np.array_equal(
+                got.cpu().numpy(), data_pipeline.make_batch_for_step(cfg, step)["tokens"]):
+            fail(f"data: the batch of step {step} is not make_batch_for_step's on the card")
+    print(f"[data] Prefetcher(device='cuda'): 4 steps of {tuple(got.shape)} int32 on the card, "
+          f"equal to make_batch_for_step")
 
 
 RAW_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode", "lz_fused_mono",

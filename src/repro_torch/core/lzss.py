@@ -41,9 +41,13 @@ from repro_torch.core.pipeline import (  # noqa: F401
     register_backend,
     register_decoder,
     resolve_backend,
+    resolve_chunk_geometry,
+    resolve_decode_geometry,
     resolve_decoder,
+    tuned_config,
     unpack_symbols,
 )
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; a CUDA device without a card raises."""
@@ -128,6 +132,7 @@ def compress(data, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> Compress
     raw = _as_bytes(data, dev)
     n = raw.numel()
     symbols = _pack_padded(raw, _n_chunks(n, config), config)
+    config = resolve_chunk_geometry(config)  # eagerly, before the kernels
     buf, total = compress_chunks(symbols, config, n)
     return CompressResult(data=buf[:total].cpu().numpy(), orig_bytes=n, total_bytes=total)
 
@@ -180,12 +185,15 @@ def _route(method: int, decoder: str, dev, *, batch: bool = False) -> str:
     return dec
 
 
-def decompress(blob, decoder: str = "auto", device=None) -> np.ndarray:
+def decompress(blob, decoder: str = "auto", device=None, chunks_per_block=None) -> np.ndarray:
     """Decompress a container -> uint8 array of the original bytes.
 
     Raises ``ValueError`` on a truncated or corrupt container (the checks of
     ``format.validate_container``) before anything is decoded, and on a
     decoder that does not read the container's method.
+    ``chunks_per_block`` pins the decode geometry (format-invisible; ``None``
+    = ``pipeline.resolve_decode_geometry``, resolved here, before the
+    kernels run; no Hopper kernel reads it).
     """
     dev = resolve_device(device)
     blob, h, n_tokens, payload_sizes = _validated(blob)
@@ -202,6 +210,10 @@ def decompress(blob, decoder: str = "auto", device=None) -> np.ndarray:
             chunk_symbols=h.chunk_symbols,
             n_chunks=h.n_chunks,
             decoder=dec,
+            chunks_per_block=resolve_decode_geometry(
+                chunks_per_block, symbol_size=h.symbol_size,
+                chunk_symbols=h.chunk_symbols, decoder=dec, device=dev,
+            ),
         )
     out = unpack_symbols(symbols.reshape(-1), h.symbol_size)[: h.orig_bytes]
     return out.cpu().numpy()
@@ -227,6 +239,7 @@ def compress_many(arrays, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> B
     sizes = [r.numel() for r in raws]
     nc = _n_chunks(max(sizes), config)
     symbols = torch.stack([_pack_padded(r, nc, config) for r in raws])
+    config = resolve_chunk_geometry(config)  # eagerly, before the kernels
     data, totals = compress_many_chunks(symbols, config, sizes)
     return BatchedCompressResult(
         data=data.cpu().numpy(),
@@ -236,15 +249,24 @@ def compress_many(arrays, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> B
     )
 
 
-def decompress_many(batch, decoder: str = "auto", device=None) -> list:
+def decompress_many(batch, decoder: str = "auto", device=None, mesh=None, batch_axis=None,
+                    chunks_per_block=None) -> list:
     """Decompress a batch of containers in one dispatch.
 
     ``batch`` is a ``BatchedCompressResult`` or a list of container blobs,
     all of one geometry (S, C, n_chunks, method) — true for anything
     produced by ``compress_many``; a lossy batch also shares its (mode,
     inner method).  Raw batches decode in one decoder launch; entropy and
-    lossy batches container by container.  Returns a list of uint8 arrays.
+    lossy batches container by container.  ``mesh`` / ``batch_axis`` split
+    the batch over a sequence of devices through the ``"sharded"`` decoder
+    (sharding/batch.py), each shard decoding with its device's default; an
+    entropy or lossy batch decodes container by container, each on its
+    shard's device.  The bytes are those of the unsharded dispatch.
+    ``chunks_per_block`` pins the decode geometry (``None`` =
+    ``pipeline.resolve_decode_geometry``).  Returns a list of uint8 arrays.
     """
+    if mesh is None and batch_axis is not None:
+        raise ValueError("batch_axis requires mesh=...")
     dev = resolve_device(device)
     if isinstance(batch, BatchedCompressResult):
         blobs = [batch.data[b, : int(batch.total_bytes[b])] for b in range(len(batch))]
@@ -283,14 +305,25 @@ def decompress_many(batch, decoder: str = "auto", device=None) -> list:
                     f"but buffer {i} has {sp(h)}; "
                     f"decompress mismatched containers individually"
                 )
-    dec = _route(h0.method, decoder, dev, batch=True)
+    if mesh is not None and decoder not in ("auto", "sharded"):
+        raise ValueError(
+            f"mesh= shards the dispatch through the 'sharded' decoder; "
+            f"it cannot be combined with decoder={decoder!r}"
+        )
+    dec = _route(h0.method, "auto" if mesh is not None else decoder, dev, batch=True)
     whole = getattr(get_decoder(dec, dev), "decode_blob", None)
     if whole is not None:
-        return [
-            unpack_symbols(whole(torch.from_numpy(b).to(dev), h).reshape(-1), h.symbol_size)
-            [: h.orig_bytes].cpu().numpy()
-            for b, h, _, _ in checked
-        ]
+        # container by container; with a mesh, each row on its shard's device
+        from repro_torch.sharding import batch as shbatch  # lazy: avoid a cycle
+
+        def one(row, d):
+            b, h, _, _ = row
+            sym = whole(torch.from_numpy(b).to(d), h).reshape(-1)
+            return unpack_symbols(sym, h.symbol_size)[: h.orig_bytes].cpu().numpy()
+
+        return shbatch.ShardedBatchRunner(mesh, batch_axis).map_rows(one, checked, dev)
+    if mesh is not None:
+        dec = "sharded"
     width = max(c[0].size for c in checked)
     stacked = np.zeros((len(checked), width), np.uint8)
     for i, c in enumerate(checked):
@@ -303,6 +336,12 @@ def decompress_many(batch, decoder: str = "auto", device=None) -> list:
         chunk_symbols=h0.chunk_symbols,
         n_chunks=h0.n_chunks,
         decoder=dec,
+        chunks_per_block=resolve_decode_geometry(
+            chunks_per_block, symbol_size=h0.symbol_size, chunk_symbols=h0.chunk_symbols,
+            decoder=dec, device=dev,
+        ),
+        mesh=mesh,
+        batch_axis=batch_axis,
     )
     s = h0.symbol_size
     out = []

@@ -11,7 +11,8 @@ own the Kernel II/III tail through an optional ``emit`` method; the default
 tail is ``emit_torch``.  A backend may instead own a whole batch of raw
 containers through an optional ``compress_many`` method.  A decoder backend
 maps per-chunk aligned sections to symbols through ``decode``, and may own
-a whole batch of raw containers through an optional ``decode_many``.
+a whole batch of raw containers through an optional ``decode_many``, or
+the whole batched dispatch through ``decompress_many``.
 Registered entries:
 
   compressors  ``torch``          plain PyTorch: matching, the
@@ -30,6 +31,9 @@ Registered entries:
                ``lossy-fz``       error-bounded quantization + bitshuffle +
                                   the ``lossy_inner`` lossless stage
                                   (method-2 containers, core/lossy.py)
+               ``sharded``        the batch split over the devices of
+                                  ``LZSSConfig(mesh=...)``, each shard through
+                                  the device's default (sharding/batch.py)
   decoders     ``torch-parallel`` plain PyTorch parallel decoder
                ``torch-scan``     sequential token walk (the oracle)
                ``fused``          plain ``gather_section`` + the CUDA decoder
@@ -40,6 +44,9 @@ Registered entries:
                                   LZSS decoder (method-1 containers only)
                ``lossy-fz``       inner decode + unshuffle + dequantization
                                   (method-2 containers only)
+               ``sharded``        the batch split over the devices of the
+                                  mesh passed at dispatch, each shard through
+                                  the device's default decoder
 
 ``"auto"`` resolves by device: the one-launch ``fused-mono`` pair on
 ``cuda``, as the reference package's default on an accelerator, and the
@@ -82,6 +89,14 @@ class LZSSConfig:
     its bit-exact lossless mode) and ``lossy_inner`` the lossless stage
     inside a lossy container.  The two container backends pin their own
     decoders, with the reference's validation and messages.
+
+    ``mesh`` is a sequence of devices (``torch.device`` or their names) on
+    one batch axis, ``"data"``; the ``"sharded"`` entries and the batched
+    ``deflate-full`` / ``lossy-fz`` dispatches split the B dimension of the
+    batched entry points over it (sharding/batch.py).  ``batch_axis`` names
+    that axis (or ``None``).  Only those entries consult ``mesh``, so
+    setting it with any other backend/decoder is rejected, with the
+    reference's messages.
     """
 
     symbol_size: int = 2  # S in {1, 2, 4}
@@ -92,6 +107,8 @@ class LZSSConfig:
     decoder: str = "auto"
     lossy_eb: object = None  # error bound for backend="lossy-fz" (0=lossless)
     lossy_inner: str = "auto"  # lossless stage inside a lossy-fz container
+    mesh: object = None  # devices the "sharded" entries split B over
+    batch_axis: object = None  # axis name (or tuple) carrying B; None=auto
 
     def __post_init__(self):
         if self.symbol_size not in (1, 2, 4):
@@ -167,6 +184,27 @@ class LZSSConfig:
                 "decoder='lossy-fz' decodes method-2 (lossy) containers "
                 "only; pair it with backend='lossy-fz'"
             )
+        if isinstance(self.batch_axis, list):
+            object.__setattr__(self, "batch_axis", tuple(self.batch_axis))
+        if self.mesh is None:
+            if self.batch_axis is not None:
+                raise ValueError("batch_axis requires mesh=...")
+            return
+        if (
+            self.backend not in ("sharded", "deflate-full", "lossy-fz")
+            and self.decoder != "sharded"
+        ):
+            raise ValueError(
+                "mesh=... is only consulted by the 'sharded' compressor/"
+                "decoder and the batched 'deflate-full'/'lossy-fz' "
+                "dispatches; set backend='sharded'/'deflate-full'/'lossy-fz' "
+                "and/or decoder='sharded'"
+            )
+        from repro_torch.sharding import batch as shbatch  # lazy: avoid a cycle
+
+        object.__setattr__(self, "mesh", shbatch.mesh_devices(self.mesh))
+        if self.batch_axis is not None:
+            shbatch.normalize_batch_axes(self.mesh, self.batch_axis)
 
     @property
     def min_match(self) -> int:
@@ -175,20 +213,18 @@ class LZSSConfig:
 
 # Reference-package registry keys -> the port's.  The kernel entries map to
 # their namesakes (``pallas-match`` to ``cuda-match``, named for its
-# kernel); the plain XLA entries map to "auto", the sequential oracles and
-# the two container formats to theirs.
+# kernel); the plain XLA entries map to "auto", the sequential oracles, the
+# batch layer and the two container formats to theirs.
 _JAX_BACKENDS = {
     "xla": "auto", "pallas-match": "cuda-match", "fused": "fused",
     "fused-deflate": "fused-deflate", "fused-mono": "fused-mono", "auto": "auto",
     "xla-scan": "torch-scan", "deflate-full": "deflate-full", "lossy-fz": "lossy-fz",
+    "sharded": "sharded",
 }
 _JAX_DECODERS = {
     "xla-parallel": "auto", "fused": "fused", "fused-mono": "fused-mono",
     "auto": "auto", "xla-scan": "torch-scan", "deflate-full": "deflate-full",
-    "lossy-fz": "lossy-fz",
-}
-_QUEUED = {
-    "sharded": "ROADMAP.md queue 1 item 9 (sharding/batch.py)",
+    "lossy-fz": "lossy-fz", "sharded": "sharded",
 }
 _JAX_FIELDS = {
     "symbol_size", "window", "chunk_symbols", "chunks_per_block", "backend",
@@ -199,8 +235,9 @@ _JAX_FIELDS = {
 def config_from_jax(fields: dict) -> LZSSConfig:
     """An ``LZSSConfig`` from ``dataclasses.asdict`` of a reference config.
 
-    Raises ``ValueError`` for an entry whose container or dispatch is not
-    ported yet, naming the ROADMAP item, and for unknown fields.
+    Raises ``ValueError`` for unknown fields and entries, and for a mesh: a
+    jax ``Mesh`` does not cross, so the caller passes the port's own (a
+    sequence of torch devices) instead.
     """
     unknown = set(fields) - _JAX_FIELDS
     if unknown:
@@ -208,15 +245,14 @@ def config_from_jax(fields: dict) -> LZSSConfig:
     mapped = {}
     for key, table in (("backend", _JAX_BACKENDS), ("decoder", _JAX_DECODERS)):
         name = fields.get(key, "auto")
-        if name in _QUEUED:
-            raise ValueError(
-                f"{key}={name!r} is not ported yet: see {_QUEUED[name]}"
-            )
         if name not in table:
             raise ValueError(f"unknown reference {key} {name!r}")
         mapped[key] = table[name]
     if fields.get("mesh") is not None or fields.get("batch_axis") is not None:
-        raise ValueError(f"mesh=... is not ported yet: see {_QUEUED['sharded']}")
+        raise ValueError(
+            "a jax Mesh does not cross into repro_torch: pass torch devices "
+            "instead, LZSSConfig(mesh=(torch.device('cuda', 0), ...))"
+        )
     inner = fields.get("lossy_inner", "auto")
     if inner not in _JAX_BACKENDS:
         raise ValueError(f"lossy_inner={inner!r} is not ported yet")
@@ -406,9 +442,40 @@ class FusedMonoBackend(FusedBackend):
         )
 
 
+class ShardedCompressor:
+    """The batch split over ``cfg.mesh`` (sharding/batch.py), through the
+    ``compress_many`` hook: every shard runs the default backend of its
+    device, so each row's container is byte-identical to the unsharded
+    dispatch.  ``mesh=None`` is the plain batched dispatch."""
+
+    name = "sharded"
+
+    def compress_many(self, symbols, cfg, orig_bytes):
+        return _sharded_many(symbols, cfg, orig_bytes)
+
+
+def _sharded_many(symbols, cfg, orig_bytes):
+    from repro_torch.sharding import batch as shbatch  # lazy: avoid a cycle
+
+    return shbatch.ShardedBatchRunner(cfg.mesh, cfg.batch_axis).compress_many(
+        symbols, cfg, orig_bytes)
+
+
+def _containers_many(backend, symbols, cfg, orig_bytes):
+    """A container backend's batch: split over ``cfg.mesh`` when it has
+    one, else one container at a time on the symbols' device."""
+    if cfg.mesh is not None:
+        return _sharded_many(symbols, cfg, orig_bytes)
+    outs = [backend.compress(symbols[r], cfg, int(orig_bytes[r]))
+            for r in range(symbols.shape[0])]
+    return torch.stack([o[0] for o in outs]), [int(o[1]) for o in outs]
+
+
 class EntropyBackend:
     """Method-1 containers (core/entropy.py): the device's LZSS, then
-    canonical Huffman over both sections, with gap-array entry points."""
+    canonical Huffman over both sections, with gap-array entry points.
+    ``compress_many`` honours ``cfg.mesh`` as the ``"sharded"`` entry
+    does."""
 
     name = "deflate-full"
     container_method = fmt.METHOD_HUFFMAN
@@ -418,11 +485,15 @@ class EntropyBackend:
 
         return entropy.compress_entropy(symbols, cfg, orig_bytes)
 
+    def compress_many(self, symbols, cfg, orig_bytes):
+        return _containers_many(self, symbols, cfg, orig_bytes)
+
 
 class LossyFzBackend:
     """Method-2 containers (core/lossy.py): dual-quant, bitshuffle, then
     the ``cfg.lossy_inner`` lossless stage; ``lossy_eb == 0`` is the
-    bit-exact lossless mode."""
+    bit-exact lossless mode.  ``compress_many`` honours ``cfg.mesh``
+    exactly like the entropy entry."""
 
     name = "lossy-fz"
     container_method = fmt.METHOD_LOSSY
@@ -432,6 +503,9 @@ class LossyFzBackend:
 
         return lossy.compress_lossy(symbols, cfg, orig_bytes)
 
+    def compress_many(self, symbols, cfg, orig_bytes):
+        return _containers_many(self, symbols, cfg, orig_bytes)
+
 
 register_backend(TorchBackend())
 register_backend(TorchScanBackend())
@@ -439,6 +513,7 @@ register_backend(CudaMatchBackend())
 register_backend(FusedBackend())
 register_backend(FusedDeflateBackend())
 register_backend(FusedMonoBackend())
+register_backend(ShardedCompressor())
 register_backend(EntropyBackend())
 register_backend(LossyFzBackend())
 
@@ -472,8 +547,10 @@ class DecoderBackend(Protocol):
     ``decode_many(blobs, n_tokens, payload_sizes, *, symbol_size,
     chunk_symbols, n_chunks)`` for a batch of raw containers, (B, L) uint8
     blobs and (B, nc) tables -> (B, nc, C) int32, which
-    ``decompress_many_chunks`` calls in place of the section gathers.  A
-    decoder that owns a whole
+    ``decompress_many_chunks`` calls in place of the section gathers; or
+    own the whole batched dispatch through ``decompress_many`` (the same
+    arguments plus ``chunks_per_block``, ``mesh`` and ``batch_axis``), as
+    ``"sharded"`` does.  A decoder that owns a whole
     container format also defines ``decode_blob(blob, header)`` — a flat
     uint8 tensor holding the container's live bytes and its host-parsed
     ``format.Header`` -> (nc, C) int32 symbols — and ``container_method``.
@@ -529,6 +606,7 @@ class TorchParallelDecoder:
     """Plain PyTorch parallel decoder (core/decode.py:decode_parallel)."""
 
     name = "torch-parallel"
+    uses_block_geometry = False  # plain PyTorch: no kernel geometry to tune
 
     def decode(self, flag_bytes, payload, n_tokens, *, symbol_size):
         return decode_mod.decode_parallel(flag_bytes, payload, n_tokens, symbol_size=symbol_size)
@@ -538,6 +616,7 @@ class TorchScanDecoder:
     """Sequential token walk (equivalence oracle)."""
 
     name = "torch-scan"
+    uses_block_geometry = False  # plain PyTorch: no kernel geometry to tune
 
     def decode(self, flag_bytes, payload, n_tokens, *, symbol_size):
         return decode_mod.decode_scan(flag_bytes, payload, n_tokens, symbol_size=symbol_size)
@@ -574,6 +653,28 @@ class FusedMonoDecoder(FusedDecoder):
             )
         return ops.lz_decode_mono(
             blobs, n_tokens, payload_sizes, symbol_size=symbol_size, chunk_symbols=chunk_symbols
+        )
+
+
+class ShardedDecoder:
+    """The decode-side mirror of ``ShardedCompressor``: the batched entry
+    point dispatches through the ``decompress_many`` hook, which splits the
+    B dimension over the mesh passed at dispatch and runs the device's
+    default decoder per shard; ``mesh=None`` is the plain batched
+    dispatch.  Container batches (``decode_blob`` decoders) never reach
+    it: ``lzss.decompress_many`` splits their rows over the mesh itself."""
+
+    name = "sharded"
+
+    def decompress_many(self, blobs, n_tokens, payload_sizes, *, symbol_size,
+                        chunk_symbols, n_chunks, chunks_per_block=None, mesh=None,
+                        batch_axis=None):
+        from repro_torch.sharding import batch as shbatch  # lazy: avoid a cycle
+
+        runner = shbatch.ShardedBatchRunner(mesh, batch_axis)
+        return runner.decompress_many(
+            blobs, n_tokens, payload_sizes, symbol_size=symbol_size,
+            chunk_symbols=chunk_symbols, n_chunks=n_chunks, chunks_per_block=chunks_per_block,
         )
 
 
@@ -628,6 +729,7 @@ register_decoder(TorchParallelDecoder())
 register_decoder(TorchScanDecoder())
 register_decoder(FusedDecoder())
 register_decoder(FusedMonoDecoder())
+register_decoder(ShardedDecoder())
 register_decoder(EntropyDecoder())
 register_decoder(LossyFzDecoder())
 
@@ -741,8 +843,9 @@ def compress_many_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None
     zeros beyond.  ``orig_bytes`` (B host ints) are the true pre-padding
     byte counts for the headers; by default the padded size ``nc * C * S``.
     A backend with a ``compress`` hook builds its containers one buffer at
-    a time; the raw backends run ``lzss_many`` (one launch for the batch
-    through a ``compress_many`` hook).
+    a time (split over ``cfg.mesh`` by its ``compress_many`` hook); the raw
+    backends run ``lzss_many`` (one launch for the batch through a
+    ``compress_many`` hook).
     """
     if symbols.dim() != 3 or symbols.shape[2] != cfg.chunk_symbols:
         raise ValueError(
@@ -752,11 +855,12 @@ def compress_many_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None
     if orig_bytes is None:
         orig_bytes = [nc * c * cfg.symbol_size] * b
     backend = get_backend(cfg.backend, symbols.device)
-    whole = getattr(backend, "compress", None)
-    if whole is None:
+    if getattr(backend, "compress", None) is None:
         return lzss_many(backend, symbols, cfg, orig_bytes)
-    outs = [whole(symbols[r], cfg, int(orig_bytes[r])) for r in range(b)]
-    return torch.stack([o[0] for o in outs]), [int(o[1]) for o in outs]
+    many = getattr(backend, "compress_many", None)
+    if many is not None:
+        return many(symbols, cfg, list(orig_bytes))
+    return _containers_many(backend, symbols, cfg, orig_bytes)
 
 
 def compress_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None):
@@ -768,17 +872,27 @@ def compress_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None):
 
 
 def decompress_many_chunks(blobs, n_tokens, payload_sizes, *, symbol_size,
-                           chunk_symbols, n_chunks, decoder="auto"):
+                           chunk_symbols, n_chunks, decoder="auto", chunks_per_block=None,
+                           mesh=None, batch_axis=None):
     """(B, L) uint8 blobs + (B, nc) tables -> (B, nc, C) int32 symbols.
 
     ``blobs`` need only cover each container's live bytes: the section
-    gathers are clipped and masked.  The decoder runs once over all B * nc
-    chunks: through its ``decode_many`` hook when it has one, else on the
-    gathered sections.
+    gathers are clipped and masked.  A decoder that owns the dispatch (the
+    ``"sharded"`` entry, through its ``decompress_many`` hook) gets
+    ``mesh`` / ``batch_axis``; other decoders never see them.  Otherwise
+    the decoder runs once over all B * nc chunks: through
+    its ``decode_many`` hook when it has one, else on the gathered
+    sections.  ``chunks_per_block`` is accepted for the reference's
+    signature and has no effect on the Hopper kernels.
     """
     c, s, nc = chunk_symbols, symbol_size, n_chunks
     b = blobs.shape[0]
     dec = get_decoder(decoder, blobs.device)
+    owner = getattr(dec, "decompress_many", None)
+    if owner is not None:
+        return owner(blobs, n_tokens, payload_sizes, symbol_size=s, chunk_symbols=c,
+                     n_chunks=nc, chunks_per_block=chunks_per_block, mesh=mesh,
+                     batch_axis=batch_axis)
     many = getattr(dec, "decode_many", None)
     if many is not None:
         return many(blobs, n_tokens, payload_sizes, symbol_size=s, chunk_symbols=c, n_chunks=nc)
@@ -804,12 +918,83 @@ def decompress_many_chunks(blobs, n_tokens, payload_sizes, *, symbol_size,
 
 
 def decompress_chunks(blob, n_tokens, payload_sizes, *, symbol_size, chunk_symbols,
-                      n_chunks, decoder="auto"):
+                      n_chunks, decoder="auto", chunks_per_block=None):
     """(L,) uint8 container bytes + (nc,) tables -> (nc, C) int32 symbols."""
     return decompress_many_chunks(
         blob[None], n_tokens[None], payload_sizes[None], symbol_size=symbol_size,
         chunk_symbols=chunk_symbols, n_chunks=n_chunks, decoder=decoder,
+        chunks_per_block=chunks_per_block,
     )[0]
+
+
+# ------------------------------------------------------- tuned geometry
+
+
+def _tunes_block_geometry() -> bool:
+    """Whether a committed C leaves the tuner a g to choose: tuning on and
+    more than one rung on the g ladder.  On Hopper the ladder has one rung
+    (no kernel reads g), so the resolvers below pass their input through."""
+    return autotune.enabled() and len(autotune.CHUNKS_PER_BLOCK_CANDIDATES) > 1
+
+
+def resolve_chunk_geometry(cfg: LZSSConfig) -> LZSSConfig:
+    """Pin ``chunks_per_block`` eagerly, before the kernels run.
+
+    The host wrappers (``lzss.compress`` / ``compress_many``) call this
+    first, as the reference does before its jit boundary: when the tuner
+    has a g to choose and the user set no pin, the tuned g is resolved
+    here and baked into the config.  Otherwise (one rung on the g ladder,
+    tuning disabled, or an explicit pin) the config passes through
+    unchanged.
+    """
+    if cfg.chunks_per_block is not None or not _tunes_block_geometry():
+        return cfg
+    g = autotune.block_geometry(
+        symbol_size=cfg.symbol_size,
+        chunk_symbols=cfg.chunk_symbols,
+        direction="compress",
+        window=cfg.window,
+    )
+    return dataclasses.replace(cfg, chunks_per_block=g)
+
+
+def resolve_decode_geometry(chunks_per_block, *, symbol_size: int, chunk_symbols: int,
+                            decoder="auto", device=None):
+    """Decode-side mirror of ``resolve_chunk_geometry``.
+
+    Returns the ``chunks_per_block`` to pass into ``decompress_chunks`` /
+    ``decompress_many_chunks``: the caller's pin if given, the tuned g when
+    the tuner has a g to choose, else ``None``.  ``decoder`` resolves on
+    ``device`` (``None``: the card); decoders that run no kernel (the plain
+    entries mark themselves ``uses_block_geometry = False``) skip the tuner.
+    """
+    if chunks_per_block is not None or not _tunes_block_geometry():
+        return chunks_per_block
+    dev = "cuda" if device is None else device
+    if not getattr(get_decoder(decoder, dev), "uses_block_geometry", True):
+        return None  # geometry never reaches a kernel: nothing to tune
+    return autotune.block_geometry(
+        symbol_size=symbol_size,
+        chunk_symbols=chunk_symbols,
+        direction="decompress",
+    )
+
+
+def tuned_config(symbol_size: int = 2, window: int = 128, **overrides) -> LZSSConfig:
+    """An ``LZSSConfig`` with autotuned (chunk_symbols, chunks_per_block).
+
+    Consults ``autotune.tuned_chunk_geometry`` — the joint sweep over C —
+    for the current card; with tuning disabled (no card, or
+    ``REPRO_AUTOTUNE=0``) this is ``LZSSConfig(...)`` with the static
+    geometry (C=2048, g=8).  ``chunk_symbols`` changes container bytes, so
+    use this only when *creating* containers, never to reinterpret existing
+    ones (their geometry is in the header).  Explicit ``chunk_symbols`` /
+    ``chunks_per_block`` overrides win over the tuner.
+    """
+    c, g = autotune.tuned_chunk_geometry(symbol_size=symbol_size, window=window)
+    overrides.setdefault("chunk_symbols", c)
+    overrides.setdefault("chunks_per_block", g)
+    return LZSSConfig(symbol_size=symbol_size, window=window, **overrides)
 
 
 DEFAULT_CONFIG = LZSSConfig()  # paper default: C=2048, S=2, W=128

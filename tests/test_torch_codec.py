@@ -239,15 +239,30 @@ def test_config_from_jax_maps_raw_family(backend, want):
     assert t.backend == want and t.decoder == "torch-scan"
 
 
-@pytest.mark.parametrize("fields,item", [
-    (dict(backend="sharded"), "item 9"),
-    (dict(backend="deflate-full", decoder="sharded"), "item 9"),
-    (dict(decoder="sharded"), "item 9"),
+@pytest.mark.parametrize("fields,want", [
+    (dict(backend="sharded"), ("sharded", "auto")),
+    (dict(backend="deflate-full", decoder="sharded"), ("deflate-full", "sharded")),
+    (dict(decoder="sharded"), ("auto", "sharded")),
+    (dict(backend="sharded", mesh=True), None),
+    (dict(backend="deflate-full", mesh=True, batch_axis="data"), None),
 ])
-def test_config_from_jax_rejects_queued_entries(fields, item):
+def test_config_from_jax_rejects_queued_entries(fields, want):
+    """No entry is queued any more: "sharded" maps in all three positions;
+    only a jax mesh is refused, with a message that says to pass torch
+    devices."""
+    import jax
+
+    fields = dict(fields)
+    if fields.pop("mesh", None):
+        fields["mesh"] = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
     j = jpipe.LZSSConfig(**fields)
-    with pytest.raises(ValueError, match=item):
-        tpipe.config_from_jax(dataclasses.asdict(j))
+    fields = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}  # a Mesh: no deepcopy
+    if want is None:
+        with pytest.raises(ValueError, match="pass torch devices"):
+            tpipe.config_from_jax(fields)
+        return
+    t = tpipe.config_from_jax(fields)
+    assert (t.backend, t.decoder, t.mesh) == (*want, None)
 
 
 def test_auto_resolves_by_device():
@@ -258,9 +273,10 @@ def test_auto_resolves_by_device():
     assert tpipe.resolve_decoder("scan", "cpu") == "torch-scan"
     assert tcore.available_backends() == [
         "cuda-match", "deflate-full", "fused", "fused-deflate", "fused-mono", "lossy-fz",
-        "torch", "torch-scan"]
+        "sharded", "torch", "torch-scan"]
     assert tcore.available_decoders() == [
-        "deflate-full", "fused", "fused-mono", "lossy-fz", "torch-parallel", "torch-scan"]
+        "deflate-full", "fused", "fused-mono", "lossy-fz", "sharded", "torch-parallel",
+        "torch-scan"]
 
 
 def test_host_api_needs_a_card_unless_cpu_is_asked_for(monkeypatch):

@@ -10,6 +10,8 @@ Outputs are integers: the tolerance is exact equality, except the values
 of lossy-fz containers, which are held to their error bound.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,7 @@ import torch
 from repro_torch import core
 from repro_torch.core import deflate, entropy, format as fmt, pipeline as pl
 from repro_torch.data import (
-    bitshuffle_edges, decode_edges, offsets_edges, scatter_edges, walk_edges)
+    bitshuffle_edges, datasets, decode_edges, offsets_edges, scatter_edges, walk_edges)
 from repro_torch.kernels import (
     _build, lz_bitshuffle, lz_decode, lz_decode_mono, lz_entropy, lz_fused, lz_match, lz_scatter, ops)
 
@@ -555,3 +557,81 @@ def test_lossy_fz_on_the_card(cuda, eb, inner):
         assert np.abs(y[fin] - x[fin]).max() <= np.float32(eb)
         assert np.array_equal(y[~fin].view(np.uint32), x[~fin].view(np.uint32))
     assert np.array_equal(res.data, core.compress(x, cfg, device="cpu").data)
+
+
+# ------------------------------------- tuner, batch layer, parameter selection
+
+
+@pytest.fixture
+def tuned(cuda, tmp_path, monkeypatch):
+    """Tuning on, against a cache file of this test's own."""
+    from repro_torch.core import autotune
+
+    monkeypatch.setenv(autotune.ENABLE_ENV, "1")
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "autotune.json"))
+    monkeypatch.setattr(autotune, "SWEEP_BYTES", 4 << 20)
+    autotune.reset()
+    yield autotune
+    autotune.reset()
+
+
+@pytest.mark.gpu
+def test_tuned_chunk_width_container_equals_plain(tuned):
+    cfg = pl.tuned_config(2, 128)
+    assert (cfg.chunk_symbols, cfg.chunks_per_block) in tuned.candidates(tuned.TuneKey(
+        tuned.device_kind(), "u16", 2, 128, "compress", None))
+    assert tuned._SWEEPS and tuned.device_kind() != "cpu"
+    data = datasets.load("hurr-quant", 3 << 20)
+    ops.reset_launch_counts()
+    res = core.compress(data, dataclasses.replace(cfg, backend="fused-mono"))
+    assert ops.launch_counts()["lz_fused_mono"] == 1
+    plain = core.compress(data, dataclasses.replace(cfg, backend="torch"))
+    assert np.array_equal(res.data, plain.data)
+    assert np.array_equal(core.decompress(res.data), data)
+    assert pl.tuned_config(2, 128) == cfg and len(tuned._SWEEPS) == 1
+    tuned.reset()
+    assert pl.tuned_config(2, 128) == cfg and tuned._SWEEPS == {}
+
+
+@pytest.mark.gpu
+def test_sharded_runner_on_one_card_twice_equals_unsharded(cuda):
+    rng = np.random.default_rng(4)
+    items = [datasets.load("hurr-quant", 1 << 20)[: (1 << 20) - 999 * i] for i in range(3)]
+    items[2] = rng.integers(0, 256, 5000).astype(np.uint8)
+    plain = core.compress_many(items, core.LZSSConfig())
+    for mesh in ((cuda,), (cuda, cuda)):
+        got = core.compress_many(items, core.LZSSConfig(backend="sharded", mesh=mesh))
+        assert np.array_equal(got.data, plain.data)
+        outs = core.decompress_many(got, mesh=mesh)
+        assert all(np.array_equal(o, x) for o, x in zip(outs, items))
+    ent = core.LZSSConfig(backend="deflate-full")
+    want = core.compress_many(items, ent)
+    got = core.compress_many(items, dataclasses.replace(ent, mesh=(cuda, cuda)))
+    assert np.array_equal(got.data, want.data)
+    outs = core.decompress_many(got, mesh=(cuda, cuda))
+    assert all(np.array_equal(o, x) for o, x in zip(outs, items))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(datasets.DATASETS))
+def test_param_selector_on_the_card_picks_as_on_cpu(cuda, name):
+    data = datasets.load(name, 1 << 20)
+    dtype = datasets.DATASETS[name][1]
+    sel = {dev: core.ParamSelector(dtype=dtype) for dev in ("cuda", "cpu")}
+    for half in (data[: data.size // 2], data[data.size // 2 :]):
+        picks = {dev: s.observe(half, device=dev) for dev, s in sel.items()}
+        assert picks["cuda"] == picks["cpu"]
+    assert sel["cuda"].mean_ratio == sel["cpu"].mean_ratio
+    assert sel["cuda"].current_config() == sel["cpu"].current_config()
+
+
+@pytest.mark.gpu
+def test_prefetcher_puts_batches_on_the_card(cuda):
+    from repro_torch.data import pipeline as data_pipeline
+
+    cfg = data_pipeline.DataConfig(vocab_size=32000, seq_len=256, global_batch=4, seed=1)
+    pre = data_pipeline.Prefetcher(cfg, start_step=3, device=cuda)
+    for step in range(3, 7):
+        got = pre.next()["tokens"]
+        assert got.device.type == "cuda" and got.dtype == torch.int32
+        assert np.array_equal(got.cpu().numpy(), data_pipeline.make_batch_for_step(cfg, step)["tokens"])
