@@ -74,7 +74,15 @@ Phases, any failure of which exits non-zero:
                 to the unsharded compress_many; the Fig. 8-10 twins (fig8
                 at 128 KiB / 64 KiB with the recorded ratios, fig9 and
                 fig10 at 1 MiB and at 128 MiB, JSONs to chiprun_out/); the
-                Prefetcher on the card over 4 steps
+                Prefetcher on the card over 4 steps; the model zoo
+                (models_phase, plain PyTorch, no kernel of the table):
+                llama3.2-1b whole in bf16 (prefill (4, 2048), dense and
+                paged decode of a 512-token prompt + 32 greedy tokens,
+                paged bit-identical to dense, times and peak memory), all
+                ten architectures at published width cut to 2 layers
+                (decode against forward in f32 with TF32 off, loss_fn,
+                bf16 prefill (2, 1024)), the reduced configs on the card
+                against the CPU, and layer 0's K cache through the codec
   6. times      host-clock throughput of the main path, the one-launch and
                 split host APIs in turns, a stage breakdown
                 of one raw and one lossy-fz round trip, CUDA-event times of
@@ -553,7 +561,8 @@ def main() -> None:
 
     # ------------------------------ the codec's modules: one path each
     seconds = {}
-    for phase in (autotune_phase, params_phase, sharded_phase, twins_phase, data_phase):
+    for phase in (autotune_phase, params_phase, sharded_phase, twins_phase, data_phase,
+                  models_phase):
         t0 = time.perf_counter()
         phase(inputs, card, err)
         seconds[phase.__name__[: -len("_phase")]] = time.perf_counter() - t0
@@ -1056,6 +1065,203 @@ def data_phase(inputs, card, err) -> None:
             fail(f"data: the batch of step {step} is not make_batch_for_step's on the card")
     print(f"[data] Prefetcher(device='cuda'): 4 steps of {tuple(got.shape)} int32 on the card, "
           f"equal to make_batch_for_step")
+
+
+def models_phase(inputs, card, err) -> None:
+    """The model zoo on the card.  (1) llama3.2-1b whole (16 layers, d 2048,
+    bf16, weights from init_params(cfg, 0)): prefill (4, 2048); dense decode
+    of 4 sequences in a 544-slot cache, a 512-token prompt then 32 greedy
+    tokens; the same through decode_step_paged (block_tokens=16, map_all),
+    every logit and token bit-identical to dense; decode's logits at 511
+    against the prefill of the prompt; CUDA-event times and peak memory.
+    (2) All ten architectures at their published widths, cut to 2 layers
+    (hymba keeps one global layer and its 1024 window): in f32 with TF32 off
+    forward over (2, 64) tokens against 64 decode steps within 1e-3 x
+    max(1, max|logits|) (MoE at no-drop capacity) and a finite loss_fn; in
+    bf16 a finite prefill of (2, 1024).  (3) The ten reduced configs in f32,
+    the same weights on the card and the CPU: logits within 1e-4 of max
+    |logit|.  (4) Layer 0's K cache of (1) through core.compress and back:
+    exact, one launch a call."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs, core
+    from repro_torch.kernels import ops
+    from repro_torch.models import common, convert, model, transformer as tf
+
+    dev = torch.device("cuda")
+
+    def event_ms(fn, reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    # (1) llama3.2-1b whole
+    cfg = configs.get_config("llama3.2-1b")
+    torch.cuda.reset_peak_memory_stats()
+    m = model.init_params(cfg, 0, device=dev)
+    n_params = sum(p.numel() for p in m.parameters())
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g, device=dev, dtype=torch.int32)
+    last = tf.prefill(m, cfg, tokens=toks)  # also the warm-up of the timing below
+    if last.shape != (4, cfg.padded_vocab) or not bool(torch.isfinite(last).all()):
+        fail(f"models: llama3.2-1b prefill gives {tuple(last.shape)} or non-finite logits")
+    prefill_ms = event_ms(lambda: tf.prefill(m, cfg, tokens=toks), 3)
+
+    prompt, steps, slots = toks[:, :512], 32, 544
+    caches = tf.init_cache(cfg, 4, slots, device=dev)
+    paged = tf.init_paged_cache(cfg, 4, slots, block_tokens=16, device=dev)
+    td = tp = prompt[:, 0]
+    out = []
+    for pos in range(slots):
+        ld, caches = tf.decode_step(m, cfg, caches, td, pos)
+        lp, paged = tf.decode_step_paged(m, cfg, paged, tp, pos)
+        if pos == 511:
+            at_511 = ld
+        if pos + 1 < 512:
+            td = tp = prompt[:, pos + 1]
+        else:
+            td, tp = ld.argmax(-1).to(torch.int32), lp.argmax(-1).to(torch.int32)
+            out.append(td)
+        if not (torch.equal(ld, lp) and torch.equal(td, tp)):
+            fail(f"models: paged decode differs from dense at position {pos}")
+    generated = torch.stack(out[:steps], 1)
+    pre_prompt = tf.prefill(m, cfg, tokens=prompt)
+    gap = float((pre_prompt - at_511).abs().max())
+    if not bool(torch.isfinite(at_511).all()):
+        fail("models: decode's logits at position 511 are not finite")
+
+    def timed_steps(step, state):
+        pos = iter(range(512, slots))
+        tok = generated[:, 0]
+        step(m, cfg, state, tok, next(pos))  # warm-up
+        return event_ms(lambda: step(m, cfg, state, tok, next(pos)), 16)
+
+    dense_ms = timed_steps(tf.decode_step, caches)
+    paged_ms = timed_steps(tf.decode_step_paged, paged)
+    peak = torch.cuda.max_memory_allocated()
+
+    def device_split(label, fn, reps, event_ms_each):
+        """Kernel time a call from torch.profiler, against the call's
+        CUDA-event time: the device's busy share, and the top kernels."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # the kernels' own rows (an operator's row repeats its kernels' time)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total]
+        if not rows:
+            print(f"[models] {card} | {label}: device time not measured (no device events)")
+            return
+        busy = sum(e.self_device_time_total for e in rows) / 1e3 / reps
+        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
+        print(f"[models] {card} | {label}: kernels {busy:.3f} ms a call of {event_ms_each:.3f} "
+              f"(busy {busy / event_ms_each:.1%}), {sum(e.count for e in rows) / reps:.0f} device "
+              f"events a call (torch.profiler, {reps} calls); top: " + "; ".join(
+                  f"{e.key[:48]} {e.self_device_time_total / 1e3 / reps:.3f} ms" for e in top))
+
+    device_split("llama3.2-1b prefill (4, 2048)", lambda: tf.prefill(m, cfg, tokens=toks), 2,
+                 prefill_ms)
+    pos_iter = iter(range(512, slots))
+    device_split("llama3.2-1b dense decode step", lambda: tf.decode_step(
+        m, cfg, caches, generated[:, 0], next(pos_iter)), 8, dense_ms)
+    print(f"[models] {card} | llama3.2-1b whole: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} heads, {cfg.num_kv_heads} KV heads padded to {cfg.padded_kv_heads}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n_params} parameters in bf16")
+    print(f"[models] {card} | llama3.2-1b prefill (4, 2048): {prefill_ms:.3f} ms, "
+          f"{4 * 2048 / prefill_ms * 1e3:.1f} tokens/s (CUDA events, mean of 3 after a warm-up)")
+    print(f"[models] {card} | llama3.2-1b decode step, 4 sequences, {slots}-slot cache: dense "
+          f"{dense_ms:.3f} ms ({4 / dense_ms * 1e3:.1f} tokens/s), paged (16-token blocks) "
+          f"{paged_ms:.3f} ms ({4 / paged_ms * 1e3:.1f} tokens/s) (CUDA events, mean of 16 "
+          f"after a warm-up); peak memory {peak} bytes")
+    print(f"[models] llama3.2-1b: 512-token prompt + {steps} greedy tokens, paged decode "
+          f"bit-identical to dense at all {slots} positions; max |prefill - decode| at "
+          f"position 511: {gap!r}; first tokens {generated[0, :8].tolist()}")
+
+    # (4) the K cache of layer 0 through the codec (before freeing (1))
+    k0 = caches[0]["attn"]["k"]
+    ops.reset_launch_counts()
+    res = core.compress(k0, core.LZSSConfig(symbol_size=2))
+    made_c = ops.launch_counts()
+    back = core.decompress(res.data)
+    made_d = {k: v - made_c[k] for k, v in ops.launch_counts().items()}
+    if {k: v for k, v in made_c.items() if v} != {"lz_fused_mono": 1} or {
+            k: v for k, v in made_d.items() if v} != {"lz_decode_mono": 1}:
+        fail(f"models: K cache round trip launched {made_c} / {made_d}, want one each")
+    if not np.array_equal(back, k0.contiguous().view(torch.uint8).reshape(-1).cpu().numpy()):
+        fail("models: the K cache's codec round trip is not exact")
+    print(f"[models] layer 0 K cache {tuple(k0.shape)} bf16 ({k0.numel() * 2} bytes) through "
+          f"core.compress (S=2): ratio {res.ratio!r}, exact round trip, one launch each way")
+    del m, caches, paged, k0, last, pre_prompt
+    torch.cuda.empty_cache()
+
+    # (2) the ten architectures at published width, 2 layers
+    shape = configs.ShapeConfig("smoke", 64, 2, "train")
+    for name in configs.ARCHS:
+        base = configs.get_config(name)
+        cut = dict(num_layers=2)
+        if base.global_attn_layers:
+            cut["global_attn_layers"] = (0,)
+        cfg = dataclasses.replace(base, dtype="float32", **cut)
+        if cfg.moe is not None:  # no-drop capacity: decode routes as the forward does
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+        t0 = time.perf_counter()
+        m = model.init_params(cfg, 0, device=dev)
+        n_params = sum(p.numel() for p in m.parameters())
+        g = torch.Generator(device=dev).manual_seed(2)
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g, device=dev)
+        with common.full_f32_matmul(), torch.no_grad():
+            full = tf.unembed(m, cfg, tf.forward(m, cfg, tokens=toks, remat="none")[0])
+            caches, outs = tf.init_cache(cfg, 2, 64, device=dev), []
+            for pos in range(64):
+                outs.append(tf.decode_step(m, cfg, caches, toks[:, pos], pos)[0])
+            loss, parts = tf.loss_fn(m, cfg, model.make_batch(cfg, shape, 3, dev), remat="none")
+        err = float((torch.stack(outs, 1) - full).abs().max())
+        bound = 1e-3 * max(1.0, float(full.abs().max()))
+        if not (err <= bound and bool(torch.isfinite(loss))):
+            fail(f"models: {name} decode {err} from forward (bound {bound}) or loss {loss}")
+        del m, caches, outs, full
+        torch.cuda.empty_cache()
+        m16 = model.init_params(dataclasses.replace(base, **cut), 0, device=dev)
+        toks16 = torch.randint(0, base.vocab_size, (2, 1024), generator=g, device=dev)
+        last = tf.prefill(m16, m16.cfg, tokens=toks16)
+        if not bool(torch.isfinite(last).all()):
+            fail(f"models: {name} bf16 prefill (2, 1024) is not finite")
+        del m16, last
+        torch.cuda.empty_cache()
+        print(f"[models] {name} at published width, 2 layers ({n_params} parameters in f32): "
+              f"decode against forward {err:.3g} (bound {bound:.3g}), loss {float(loss):.4f} "
+              f"(aux {float(parts['aux']):.4g}), bf16 prefill (2, 1024) finite; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    # (3) the card against the CPU
+    worst = {}
+    for name in configs.ARCHS:
+        cfg = dataclasses.replace(configs.reduced_config(configs.get_config(name)),
+                                  dtype="float32")
+        on_cpu = model.init_params(cfg, 0, device="cpu")
+        on_card = convert.params_from_numpy(convert.params_to_numpy(on_cpu), cfg, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(4))
+        with common.full_f32_matmul(), torch.no_grad():
+            want = tf.unembed(on_cpu, cfg, tf.forward(on_cpu, cfg, tokens=toks, remat="none")[0])
+            got = tf.unembed(on_card, cfg, tf.forward(on_card, cfg, tokens=toks.to(dev),
+                                                      remat="none")[0])
+        worst[name] = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+        if worst[name] > 1e-4:
+            fail(f"models: {name} reduced, card against CPU {worst[name]} > 1e-4")
+    print(f"[models] reduced configs in f32, card against CPU, max |diff| / max |logit|: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
 
 RAW_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode", "lz_fused_mono",

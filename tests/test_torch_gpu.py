@@ -635,3 +635,90 @@ def test_prefetcher_puts_batches_on_the_card(cuda):
         got = pre.next()["tokens"]
         assert got.device.type == "cuda" and got.dtype == torch.int32
         assert np.array_equal(got.cpu().numpy(), data_pipeline.make_batch_for_step(cfg, step)["tokens"])
+
+
+# ------------------------------------------------------------- the models
+
+
+def _model_cfg(name, dtype, no_drop=False):
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.reduced_config(configs.get_config(name)), dtype=dtype)
+    if no_drop and cfg.moe is not None:  # decode routes as the forward does
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    return cfg
+
+
+MODEL_ARCHS = ["llama3.2-1b", "hymba-1.5b", "mamba2-2.7b", "deepseek-v2-236b",
+               "llama4-scout-17b-a16e"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["llama3.2-1b", "hymba-1.5b", "llama4-scout-17b-a16e"])
+def test_model_paged_decode_equals_dense_on_the_card(cuda, name):
+    from repro_torch.models import model, transformer as tf
+
+    cfg = _model_cfg(name, "bfloat16")
+    m = model.init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (3, 8), generator=torch.Generator().manual_seed(1))
+    caches = tf.init_cache(cfg, 3, 16, device=cuda)
+    paged = tf.init_paged_cache(cfg, 3, 16, block_tokens=4, device=cuda)
+    td = tp = toks[:, 0].to(cuda)
+    for pos in range(16):
+        ld, caches = tf.decode_step(m, cfg, caches, td, pos)
+        lp, paged = tf.decode_step_paged(m, cfg, paged, tp, pos)
+        assert torch.equal(ld, lp), pos
+        td, tp = (toks[:, pos + 1].to(cuda),) * 2 if pos + 1 < 8 else (ld.argmax(-1), lp.argmax(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MODEL_ARCHS)
+def test_model_decode_matches_forward_f32_on_the_card(cuda, name):
+    from repro_torch.models import common, model, transformer as tf
+
+    cfg = _model_cfg(name, "float32", no_drop=True)
+    m = model.init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(2))
+    toks = toks.to(cuda)
+    with common.full_f32_matmul(), torch.no_grad():
+        full = tf.unembed(m, cfg, tf.forward(m, cfg, tokens=toks, remat="none")[0])
+        caches, outs = tf.init_cache(cfg, 2, 40, device=cuda), []
+        for pos in range(40):
+            outs.append(tf.decode_step(m, cfg, caches, toks[:, pos], pos)[0])
+    err = float((torch.stack(outs, 1) - full).abs().max())
+    assert err <= 1e-3 * max(1.0, float(full.abs().max())), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MODEL_ARCHS)
+def test_model_on_the_card_matches_the_cpu(cuda, name):
+    from repro_torch.models import common, convert, model, transformer as tf
+
+    cfg = _model_cfg(name, "float32")
+    on_cpu = model.init_params(cfg, 0, device="cpu")
+    on_card = convert.params_from_numpy(convert.params_to_numpy(on_cpu), cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), generator=torch.Generator().manual_seed(3))
+    with common.full_f32_matmul(), torch.no_grad():
+        want = tf.unembed(on_cpu, cfg, tf.forward(on_cpu, cfg, tokens=toks, remat="none")[0])
+        got = tf.unembed(on_card, cfg, tf.forward(on_card, cfg, tokens=toks.to(cuda),
+                                                  remat="none")[0])
+    err = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+    assert err <= 1e-4, err
+
+
+def test_model_entry_points_raise_without_a_card():
+    """Built on cuda by default: without a card they raise, never fall back
+    to the CPU (runs where there is no card)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from repro_torch.models import model, transformer as tf
+
+    cfg = _model_cfg("llama3.2-1b", "float32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tf.init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.make_batch(cfg, model.ShapeConfig("s", 8, 2, "train"))
+    assert model.init_params(cfg, 0, device="cpu").embed.device.type == "cpu"
