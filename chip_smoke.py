@@ -82,7 +82,19 @@ Phases, any failure of which exits non-zero:
                 ten architectures at published width cut to 2 layers
                 (decode against forward in f32 with TF32 off, loss_fn,
                 bf16 prefill (2, 1024)), the reduced configs on the card
-                against the CPU, and layer 0's K cache through the codec
+                against the CPU, and layer 0's K cache through the codec;
+                the serving engine (serving_phase: llama3.2-1b whole, 4
+                sequences of a 128-token prompt + 32 greedy tokens, dense
+                and through the compressed paged tier at 40 blocks of
+                budget with prefetch and async prefetch, deflate-full on a
+                2-layer cut, hymba's window on a 2-layer cut; paged tokens
+                bit-identical to dense, one launch of the one-launch pair a
+                round, sampled rounds equal to the plain path; rounds timed)
+                and the gradient exchange (grad_phase: llama3.2-1b's
+                gradients of two pods over a mesh of two cuda:0, ratio_cap
+                1.0 and 2.0 and lossy, equal to the per-pod quantize mean
+                at 1.0, lossy error within eb, sampled wires equal to the
+                plain path's; then one adamw_update)
   6. times      host-clock throughput of the main path, the one-launch and
                 split host APIs in turns, a stage breakdown
                 of one raw and one lossy-fz round trip, CUDA-event times of
@@ -561,8 +573,12 @@ def main() -> None:
 
     # ------------------------------ the codec's modules: one path each
     seconds = {}
+    # serving and grad run before models: right after the gradient exchange
+    # the bitshuffle pair and the gap decoder time 7-18% slower for a moment
+    # (tools/phase_aftermath.py), so models_phase stands between the
+    # exchange and the per-kernel times below, as it did before
     for phase in (autotune_phase, params_phase, sharded_phase, twins_phase, data_phase,
-                  models_phase):
+                  serving_phase, grad_phase, models_phase):
         t0 = time.perf_counter()
         phase(inputs, card, err)
         seconds[phase.__name__[: -len("_phase")]] = time.perf_counter() - t0
@@ -1262,6 +1278,545 @@ def models_phase(inputs, card, err) -> None:
             fail(f"models: {name} reduced, card against CPU {worst[name]} > 1e-4")
     print(f"[models] reduced configs in f32, card against CPU, max |diff| / max |logit|: "
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+class StoreProbe:
+    """Wraps one ``KVBlockStore``'s rounds: per round its blocks, the host
+    clock around the store call (a synchronize first), CUDA events around
+    the pipeline's dispatch and around the one-launch kernels' wrappers, and
+    the launches it made.  Every ``sample``-th round is held against the
+    plain path on the card: an eviction's blobs against the plain
+    compressor's for the same blocks (and its blocks kept, to be checked
+    again when they come back), a restore against the plain decoder's
+    output on the same blobs."""
+
+    def __init__(self, store, sample, plain_blob, plain_decode):
+        import threading
+
+        import numpy as np
+        import torch
+
+        from repro_torch.core import lzss
+        from repro_torch.kernels import ops
+
+        self.store, self.sample = store, sample
+        self.plain_blob, self.plain_decode = plain_blob, plain_decode
+        self.rounds = {"evict": [], "restore": []}
+        self.kept = {}  # store key -> the evicted block's bytes (sampled rounds)
+        self.checked = {"evict": 0, "restore": 0, "returned": 0}
+        self.local = threading.local()
+        real_evict, real_restore = store.evict_many, store.restore_many
+
+        def timed(kind, fn, *a):
+            self.local.events = {"dispatch": [], "kernel": []}
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            ms = (time.perf_counter() - t0) * 1e3
+            made = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+            self.rounds[kind].append(dict(ms=ms, made=made, **self.local.events))
+            return out
+
+        def evict_many(items):
+            items = list(items)
+            timed("evict", real_evict, items)
+            self.rounds["evict"][-1]["blocks"] = len(items)
+            if (len(self.rounds["evict"]) - 1) % self.sample == 0:
+                raws = [b.cpu().numpy() for _, b in items]
+                plain = self.plain_blob(raws)
+                for (key, _), raw, want in zip(items, raws, plain):
+                    if not np.array_equal(store._store[key][2], want):
+                        fail(f"serving: eviction round {len(self.rounds['evict'])}: the stored "
+                             f"blob of {key} differs from the plain path's")
+                    self.kept[key] = raw
+                self.checked["evict"] += 1
+
+        def restore_many(keys):
+            keys = list(keys)
+            n = len(self.rounds["restore"])
+            blobs = [store._store[k][2] for k in keys] if n % self.sample == 0 else None
+            out = timed("restore", real_restore, keys)
+            self.rounds["restore"][-1]["blocks"] = len(keys)
+            if blobs is not None:
+                for key, got, want in zip(keys, out, self.plain_decode(blobs)):
+                    if not np.array_equal(got.view(np.uint8).reshape(-1), want):
+                        fail(f"serving: restore round {n + 1}: {key} differs from the plain "
+                             f"decoder's")
+                self.checked["restore"] += 1
+            for key, got in zip(keys, out):
+                raw = self.kept.pop(key, None)
+                if raw is not None:
+                    if not np.array_equal(got.view(np.uint8).reshape(-1), raw):
+                        fail(f"serving: {key} came back other than it was evicted")
+                    self.checked["returned"] += 1
+            return out
+
+        store.evict_many, store.restore_many = evict_many, restore_many
+        self._patched = []
+        for owner, attr, slot in ((lzss, "compress_many_chunks", "dispatch"),
+                                  (lzss, "decompress_many_chunks", "dispatch"),
+                                  (ops, "lz_fused_mono", "kernel"),
+                                  (ops, "lz_decode_mono", "kernel")):
+            self._wrap(owner, attr, slot)
+
+    def _wrap(self, owner, attr, slot):
+        import torch
+
+        fn = getattr(owner, attr)
+        local = self.local
+
+        def evented(*a, **k):
+            a0, a1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a0.record()
+            out = fn(*a, **k)
+            a1.record()
+            events = getattr(local, "events", None)
+            if events is not None:
+                events[slot].append((a0, a1))
+            return out
+
+        setattr(owner, attr, evented)
+        self._patched.append((owner, attr, fn))
+
+    def close(self) -> dict:
+        """Unwrap, and sum up: rounds, blocks a round, ms a round (host
+        clock, dispatch and kernel events), launches a round."""
+        import torch
+
+        for owner, attr, fn in self._patched:
+            setattr(owner, attr, fn)
+        torch.cuda.synchronize()
+        out = {}
+        for kind, rounds in self.rounds.items():
+            if not rounds:
+                out[kind] = dict(rounds=0)
+                continue
+            n = len(rounds)
+            ev = {slot: sum(a.elapsed_time(b) for r in rounds for a, b in r[slot]) / n
+                  for slot in ("dispatch", "kernel")}
+            launches = {}
+            for r in rounds:
+                for k, v in r["made"].items():
+                    launches.setdefault(k, set()).add(v)
+            out[kind] = dict(rounds=n, blocks=sum(r["blocks"] for r in rounds) / n,
+                             host_ms=sum(r["ms"] for r in rounds) / n, dispatch_ms=ev["dispatch"],
+                             kernel_ms=ev["kernel"],
+                             launches={k: sorted(v) for k, v in launches.items()})
+        return out
+
+
+def serving_phase(inputs, card, err) -> None:
+    """The serving engine on the card.  (1) llama3.2-1b whole (16 layers at
+    published width, bf16, weights from init_params(cfg, 0)): 4 sequences, a
+    128-token prompt, 32 greedy tokens, through ServingEngine dense, then
+    paged with the compressed KV tier (kv_compress, 32-token blocks, 40
+    blocks of budget: twice the per-layer peak, against a working set of
+    320) on the card's default one-launch pair, with prefetch, then the same
+    with async_prefetch: tokens bit-identical to dense, every eviction one
+    launch of the one-launch compressor and every restore one of the
+    one-launch decoder, sampled rounds' blobs equal to the plain path's and
+    restored blocks to the plain decoder's; tokens/s, ms a step, rounds,
+    blocks and ms a round, the eviction ratio, prefetch hits, peak memory.
+    (2) kv_backend="deflate-full" (the histogram and the gap decoder on the
+    tier), llama3.2-1b cut to 2 layers, 20 blocks of budget (the per-layer
+    peak, against a working set of 40).  (3) hymba-1.5b at published width
+    cut to 2 layers (layer 0 global, layer 1 in its 1024-token window):
+    2 sequences, a 1088-token prompt and 32 tokens in 64-token blocks, so the
+    window slides past a block: dead blocks retire, paged == dense."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs, core
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.serving import engine as serving, kvcache
+
+    dev = torch.device("cuda")
+
+    def run(cfg, m, prompts, new, **kw):
+        """One generate() on a fresh engine: (result, engine, seconds, peak)."""
+        eng = serving.ServingEngine(cfg, m, max_len=-(-(prompts.shape[1] + new) // 64) * 64,
+                                    **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        return res, eng, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    def raw_plain(cfg):
+        plain_cfg = dataclasses.replace(cfg, backend="torch")
+        return lambda raws: [core.compress(r, plain_cfg).data for r in raws]
+
+    def raw_decode(blobs):
+        return [core.decompress(b, decoder="torch-parallel") for b in blobs]
+
+    def probed(cfg, m, prompts, new, plain_blob, plain_decode, sample, **kw):
+        """A paged run with its store probed (the probe's synchronize
+        before each round adds to its time)."""
+        eng_kw = dict(kv_compress=True, kv_offload=True, **kw)
+        holder = {}
+        real_init = kvcache.KVBlockStore.__init__
+
+        def init(self, *a, **k):
+            real_init(self, *a, **k)
+            holder["probe"] = StoreProbe(self, sample, plain_blob, plain_decode)
+
+        kvcache.KVBlockStore.__init__ = init
+        try:
+            res, eng, secs, peak = run(cfg, m, prompts, new, **eng_kw)
+        finally:
+            kvcache.KVBlockStore.__init__ = real_init
+        return res, eng, secs, peak, holder["probe"].close(), holder["probe"].checked
+
+    def report(label, res, eng, secs, peak, b, new):
+        steps = res.steps
+        s = eng.paging_stats() if eng.kv_offload else {}
+        st = eng.kv_store.stats
+        print(f"[serving] {card} | {label}: {steps} steps in {secs:.3f} s, {secs / steps * 1e3:.3f} "
+              f"ms a step, {b * steps / secs:.1f} tokens/s through the model, "
+              f"{b * new / secs:.1f} generated tokens/s (host clock); peak memory {peak} bytes"
+              + (f"; evictions {st.evictions} in {st.eviction_dispatches} rounds, restores "
+                 f"{st.restores} in {st.restore_dispatches} rounds, eviction ratio "
+                 f"{st.eviction_ratio!r} ({st.evicted_bytes_raw} -> {st.evicted_bytes_stored} "
+                 f"bytes), prefetch issued {s['prefetch_issued']} hits {s['prefetch_hits']}, "
+                 f"demand restores {s['demand_restores']}, async batches "
+                 f"{s['async_prefetch_batches']}, high water {s['high_water']} of "
+                 f"{s['budget_blocks']}, working set {s['working_set_blocks']} blocks"
+                 if s else ""))
+
+    def report_rounds(label, rounds, checked):
+        for kind, r in rounds.items():
+            if not r["rounds"]:
+                continue
+            events = (f"{r['dispatch_ms']:.4f} ms of it in CUDA events around the pipeline's "
+                      f"dispatch, {r['kernel_ms']:.4f} ms around the one-launch kernel's wrapper "
+                      f"({r['kernel_ms'] / r['host_ms']:.1%} of the round)" if r["dispatch_ms"]
+                      else "container by container (no batched dispatch to time)")
+            print(f"[serving] {card} | {label} {kind} rounds: {r['rounds']}, {r['blocks']:.2f} "
+                  f"blocks a round, {r['host_ms']:.4f} ms a round on the host clock around the "
+                  f"store call, {events}; launches a round {r['launches']}")
+        print(f"[serving] {label}: held against the plain path on the card: {checked['evict']} "
+              f"eviction rounds' blobs, {checked['restore']} restore rounds' blocks, "
+              f"{checked['returned']} sampled blocks back as evicted")
+
+    def one_a_round(label, rounds, want):
+        for kind, kernel in (("evict", want[0]), ("restore", want[1])):
+            bad = {k: v for k, v in rounds[kind].get("launches", {}).items()
+                   if (k, v) != (kernel, [1])}
+            if rounds[kind]["rounds"] == 0 or bad or kernel not in rounds[kind]["launches"]:
+                fail(f"serving: {label} {kind} rounds launched {rounds[kind].get('launches')}, "
+                     f"want one {kernel} a round")
+
+    # (1) llama3.2-1b whole
+    cfg = configs.get_config("llama3.2-1b")
+    m = model.init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    new, kv = 32, dict(block_tokens=32, budget_blocks=40)
+    run(cfg, m, prompts[:, :4], 2)  # warm-up
+    dense, eng, secs, peak = run(cfg, m, prompts, new)
+    report("llama3.2-1b dense", dense, eng, secs, peak, 4, new)
+    raw_cfg = kvcache.KV_LZ
+    runs = {}
+    for label, extra in (("paged, prefetch", {}), ("paged, async prefetch",
+                                                   dict(async_prefetch=True))):
+        ops.reset_launch_counts()
+        res, eng, secs, peak, rounds, checked = probed(
+            cfg, m, prompts, new, raw_plain(raw_cfg), raw_decode, 200, **kv, **extra)
+        made = {k: v for k, v in ops.launch_counts().items() if v}
+        if not np.array_equal(res.tokens, dense.tokens):
+            fail(f"serving: llama3.2-1b {label}: tokens differ from dense")
+        one_a_round(label, rounds, ("lz_fused_mono", "lz_decode_mono"))
+        report(f"llama3.2-1b {label}", res, eng, secs, peak, 4, new)
+        report_rounds(f"llama3.2-1b {label}", rounds, checked)
+        print(f"[serving] llama3.2-1b {label}: launches {made}; tokens bit-identical to dense")
+        runs[label] = secs
+    # the same paged run without the probe: its time alone
+    ops.reset_launch_counts()
+    res, eng, secs, peak = run(cfg, m, prompts, new, kv_compress=True, kv_offload=True, **kv)
+    if not np.array_equal(res.tokens, dense.tokens):
+        fail("serving: llama3.2-1b paged (no probe): tokens differ from dense")
+    report("llama3.2-1b paged, prefetch, no probe", res, eng, secs, peak, 4, new)
+    print(f"[serving] llama3.2-1b first generated tokens {dense.tokens[0, 128:136].tolist()}")
+    del m
+    torch.cuda.empty_cache()
+
+    # (2) deflate-full on the tier, llama3.2-1b cut to 2 layers
+    cut = dataclasses.replace(cfg, num_layers=2)
+    m = model.init_params(cut, 0, device=dev)
+    dense, eng, secs, peak = run(cut, m, prompts, new)
+    ent_cfg = dataclasses.replace(raw_cfg, backend="deflate-full")
+
+    def ent_plain(raws):
+        return [_plain_container(r, ent_cfg) for r in raws]
+
+    def ent_decode(blobs):
+        from repro_torch.core import entropy, format as fmt
+
+        out = []
+        for b in blobs:
+            h = fmt.parse_header(b)
+            sym = entropy.decode_blob_entropy(torch.from_numpy(np.array(b)).to(dev), h,
+                                              impl="plain")
+            out.append(core.unpack_symbols(sym.reshape(-1), h.symbol_size)[: h.orig_bytes]
+                       .cpu().numpy())
+        return out
+
+    res, eng, secs, peak, rounds, checked = path_launches(
+        "serving deflate-full", ("lz_fused_mono", "byte_histogram", "huffman_gap_decode",
+                                 "lz_decode"),
+        lambda: probed(cut, m, prompts, new, ent_plain, ent_decode, 50, kv_backend="deflate-full",
+                       block_tokens=32, budget_blocks=20))
+    if not np.array_equal(res.tokens, dense.tokens):
+        fail("serving: llama3.2-1b (2 layers) deflate-full: tokens differ from dense")
+    report("llama3.2-1b cut to 2 layers, paged, deflate-full", res, eng, secs, peak, 4, new)
+    report_rounds("llama3.2-1b cut to 2 layers, deflate-full", rounds, checked)
+    del m
+    torch.cuda.empty_cache()
+
+    # (3) hymba-1.5b at published width, 2 layers: the window slides
+    base = configs.get_config("hymba-1.5b")
+    hcfg = dataclasses.replace(base, num_layers=2, global_attn_layers=(0,))
+    m = model.init_params(hcfg, 0, device=dev)
+    hp = np.random.default_rng(6).integers(0, hcfg.vocab_size, (2, 1088)).astype(np.int32)
+    dense, eng, secs, peak = run(hcfg, m, hp, 32)
+    res, eng, secs, peak = path_launches(
+        "serving hymba", ("lz_fused_mono",), lambda: run(
+            hcfg, m, hp, 32, kv_compress=True, kv_offload=True, block_tokens=64, budget_blocks=64))
+    retired = sum(eng._retired_upto.values())
+    if not np.array_equal(res.tokens, dense.tokens) or not retired:
+        fail(f"serving: hymba paged tokens differ from dense, or no block retired ({retired})")
+    report("hymba-1.5b cut to 2 layers (window 1024), paged, prefetch", res, eng, secs, peak, 2, 32)
+    print(f"[serving] hymba-1.5b: {retired} dead window blocks retired, tokens bit-identical "
+          f"to dense")
+    del m
+    torch.cuda.empty_cache()
+
+
+def grad_phase(inputs, card, err) -> None:
+    """The optimizer with the compressed gradient exchange on the card.
+    llama3.2-1b whole in bf16 (weights from init_params(cfg, 0)); loss_fn
+    and backward on two pods' batches of (2, 512) tokens, the gradients
+    stacked as (2, ...) leaves; pod_exchange_compressed over a mesh of two
+    cuda:0 at ratio_cap 1.0 and 2.0 (lossless) and lossy at ratio_cap 2.0
+    with eb = 2**-10 x max |g|; then one adamw_update.  Checks: at ratio_cap
+    1.0 the exchange equals the per-pod quantize mean bit for bit; each
+    leaf's compression is one launch of the one-launch compressor and its
+    decode one of the one-launch decoder (lossy: a compressor launch and a
+    bitshuffle a slab, one decoder launch and one unshuffle a leaf); lossy
+    slabs sent as containers decode within eb; the wire of sampled leaves
+    equals the plain path's on the card, and their decode the plain
+    decoder's.  Recorded: wire bytes against the bf16 bytes, the share of
+    slabs sent as containers, ms per leaf class and the exchange's total."""
+    import contextlib
+    import dataclasses
+    import functools
+
+    import torch
+
+    from repro_torch import configs, optim
+    from repro_torch.core import lossy
+    from repro_torch.kernels import ops
+    from repro_torch.models import model, transformer as tf
+    from repro_torch.optim import grad_compress as gc
+
+    dev = torch.device("cuda")
+    cfg = configs.get_config("llama3.2-1b")
+    m = model.init_params(cfg, 0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 512), generator=g, device=dev,
+                         dtype=torch.int32)
+    names = [n for n, _ in m.named_parameters()]
+    per_pod = []
+    t0 = time.perf_counter()
+    for k in range(2):
+        m.zero_grad(set_to_none=True)
+        loss, _ = tf.loss_fn(m, cfg, {"tokens": toks[k]}, remat="none")
+        loss.backward()
+        per_pod.append({n: p.grad for n, p in m.named_parameters()})
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    stack = {n: torch.stack([per_pod[0][n], per_pod[1][n]]) for n in names}
+    del per_pod
+    m.zero_grad(set_to_none=True)
+    gmax = max(float(v.abs().max()) for v in stack.values())
+    eb = gmax * 2.0**-10
+    n_elems = sum(v[0].numel() for v in stack.values())
+    print(f"[grad] {card} | llama3.2-1b loss_fn + backward on 2 pods' (2, 512) tokens: "
+          f"{grad_s:.3f} s; {len(names)} leaves, {n_elems} elements a pod, max |g| {gmax!r}, "
+          f"lossy eb {eb!r}")
+
+    def leaf_class(name):
+        if name == "embed":
+            return "embedding"
+        if ".attn." in name:
+            return "attention"
+        if ".mlp." in name:
+            return "MLP"
+        return f"norms (under {gc.MIN_COMPRESS_SIZE} elements)"
+
+    wires = []
+    real_compress, real_decompress = gc.compress_leaf, gc.decompress_leaf
+
+    def recording(x, *a, **k):
+        before = ops.launch_counts()
+        w = real_compress(x, *a, **k)
+        made = {n: v - before[n] for n, v in ops.launch_counts().items() if v != before[n]}
+        wires.append(dict(w=w, made=made, x=x))
+        return w
+
+    decodes = []
+
+    def recording_d(wire, *a, **k):
+        before = ops.launch_counts()
+        out = real_decompress(wire, *a, **k)
+        decodes.append({n: v - before[n] for n, v in ops.launch_counts().items()
+                        if v != before[n]})
+        return out
+
+    def exchange(label, **kw):
+        """The exchange leaf by leaf (each a pod_exchange_compressed call
+        of one leaf, timed on the host clock around a synchronize)."""
+        wires.clear()
+        decodes.clear()
+        out, ms, info = {}, {}, {}
+        gc.compress_leaf, gc.decompress_leaf = recording, recording_d
+        try:
+            for n in names:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                first = len(wires)
+                out[n] = optim.pod_exchange_compressed({n: stack[n]}, (dev, dev), **kw)[n]
+                torch.cuda.synchronize()
+                c = leaf_class(n)
+                ms[c] = ms.get(c, 0.0) + (time.perf_counter() - t) * 1e3
+                info[n] = wires[first:]
+        finally:
+            gc.compress_leaf, gc.decompress_leaf = real_compress, real_decompress
+        total = sum(ms.values())
+        wire_bytes = sum(int(w["w"]["payload"].numel()) for ws in info.values() for w in ws)
+        raw_bytes = sum(2 * stack[n].numel() for n, ws in info.items() if ws)
+        slabs = [bool(u) for ws in info.values() for w in ws for u in w["w"]["used_lz"].tolist()]
+        print(f"[grad] {card} | exchange {label}: {total:.3f} ms in all (host clock); "
+              + ", ".join(f"{c} {v:.3f} ms" for c, v in ms.items())
+              + f"; wire {wire_bytes} bytes against {raw_bytes} bf16 bytes of the compressed "
+              f"leaves ({wire_bytes / raw_bytes:.4f}); {sum(slabs)} of {len(slabs)} slabs sent "
+              f"as containers ({sum(slabs) / len(slabs):.1%})")
+        return out, info
+
+    def want_launches(label, info, lossy_run):
+        for n, ws in info.items():
+            for w in ws:
+                k = w["w"]["used_lz"].numel()
+                want = {"lz_fused_mono": k, "bitshuffle": k} if lossy_run else {"lz_fused_mono": 1}
+                if w["made"] != want:
+                    fail(f"grad: {label} {n}: compress_leaf launched {w['made']}, want {want}")
+        for made in decodes:
+            allowed = {"lz_decode_mono": 1, "bitunshuffle": 1} if lossy_run else {
+                "lz_decode_mono": 1}
+            if made and made != allowed:
+                fail(f"grad: {label}: decompress_leaf launched {made}, want {allowed} or none")
+
+    @contextlib.contextmanager
+    def plain_path():
+        """The lossy container's stages through their plain versions."""
+        saved = lossy.compress_lossy, lossy.decode_many_lossy
+        lossy.compress_lossy = functools.partial(saved[0], impl="plain")
+        lossy.decode_many_lossy = functools.partial(saved[1], impl="plain")
+        try:
+            yield
+        finally:
+            lossy.compress_lossy, lossy.decode_many_lossy = saved
+
+    sample = ["layers.0.attn.wk", "layers.7.mlp.wd"]
+
+    def hold_plain(label, info, ratio_cap, lossy_eb):
+        """Sampled leaves' wires and decodes against the plain path's."""
+        plain_cfg = dataclasses.replace(gc.GRAD_LZ, backend="torch", decoder="torch-parallel")
+        for n in sample:
+            shape = tuple(stack[n].shape[1:])
+            for w in info[n]:
+                with plain_path():
+                    pw = gc.compress_leaf(w["x"], plain_cfg, ratio_cap, lossy_eb)
+                    pd = gc.decompress_leaf(pw, shape, plain_cfg, ratio_cap, lossy_eb)
+                kw_, kd = w["w"], gc.decompress_leaf(w["w"], shape, gc.GRAD_LZ, ratio_cap,
+                                                     lossy_eb)
+                if not (torch.equal(kw_["payload"], pw["payload"])
+                        and torch.equal(kw_["used_lz"], pw["used_lz"])
+                        and torch.equal(kw_["scale"], pw["scale"])
+                        and torch.equal(kd.view(torch.int32), pd.view(torch.int32))):
+                    fail(f"grad: {label} {n}: the wire or its decode differs from the plain path's")
+        print(f"[grad] exchange {label}: wires and decodes of {sample} equal to the plain path's "
+              f"on the card")
+
+    torch.cuda.reset_peak_memory_stats()
+    for label, kw in (("ratio_cap=1.0", dict(ratio_cap=1.0)),
+                      ("ratio_cap=2.0", dict(ratio_cap=2.0)),
+                      (f"lossy eb={eb!r} ratio_cap=2.0", dict(ratio_cap=2.0, lossy_eb=eb))):
+        # lossless, a slab whose codes do not fit the budget is sent raw and
+        # never decoded: the decoder runs only where a slab compressed
+        out, info = path_launches(
+            f"grad {label}", ("lz_fused_mono", "lz_decode_mono", "bitshuffle", "bitunshuffle")
+            if "lossy_eb" in kw else ("lz_fused_mono",), lambda: exchange(label, **kw))
+        want_launches(label, info, "lossy_eb" in kw)
+        if label == "ratio_cap=1.0":
+            for n in names:
+                x = stack[n].to(torch.float32)
+                want = 0.0
+                for k in range(2):
+                    codes, scale = gc.quantize_u16(x[k])
+                    want = want + gc.dequantize_u16(codes, scale)
+                want = (want / 2).to(stack[n].dtype)
+                small = stack[n][0].numel() < gc.MIN_COMPRESS_SIZE
+                if small:
+                    want = x.mean(0).to(stack[n].dtype)
+                if not torch.equal(out[n], want):
+                    fail(f"grad: {n}: the exchange differs from the per-pod quantize mean")
+            print(f"[grad] exchange {label}: every leaf equal to the per-pod quantize mean "
+                  f"(the norms: the plain mean)")
+        if "lossy_eb" in kw:
+            worst = 0.0
+            for n, ws in info.items():
+                shape = tuple(stack[n].shape[1:])
+                for w in ws:
+                    d = gc.decompress_leaf(w["w"], shape, gc.GRAD_LZ, 2.0, eb).reshape(-1)
+                    used = w["w"]["used_lz"]
+                    slab, _ = gc._slab_geometry(d.numel(), gc.GRAD_LZ)
+                    x = w["x"].reshape(-1).to(torch.float32)
+                    e = torch.nn.functional.pad((d - x).abs(), (0, used.numel() * slab - d.numel()))
+                    e = e.reshape(used.numel(), slab)[used]
+                    if e.numel():
+                        worst = max(worst, float(e.max()))
+            if not worst <= eb:
+                fail(f"grad: lossy exchange error {worst} on container slabs exceeds eb {eb}")
+            print(f"[grad] exchange {label}: max |g' - g| on slabs sent as containers {worst!r} "
+                  f"<= eb {eb!r}")
+        hold_plain(label, info, kw["ratio_cap"], kw.get("lossy_eb"))
+        if label == "ratio_cap=2.0":
+            exchanged = out
+        del out, info
+    print(f"[grad] {card} | peak memory of the exchanges {torch.cuda.max_memory_allocated()} bytes")
+
+    tc = configs.TrainConfig(warmup_steps=1, total_steps=10)
+    before = {n: p.detach().clone() for n, p in list(m.named_parameters())[:3]}
+    opt = optim.init_opt_state(m)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, opt, metrics = optim.adamw_update(m, exchanged, opt, 1, tc)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    moved = [n for n, p in before.items() if not torch.equal(p, dict(m.named_parameters())[n])]
+    if not (moved and all(bool(torch.isfinite(p).all()) for p in m.parameters())):
+        fail("grad: adamw_update left the parameters unchanged or not finite")
+    print(f"[grad] {card} | adamw_update on the exchanged (ratio_cap=2.0) gradients: {ms:.3f} ms, "
+          f"grad_norm {float(metrics['grad_norm'])!r}, lr {float(metrics['lr'])!r}, f32 moments "
+          f"{sum(v.numel() for v in opt['m'].values())} elements each")
+    del m, stack, exchanged, opt
+    torch.cuda.empty_cache()
 
 
 RAW_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode", "lz_fused_mono",

@@ -403,6 +403,26 @@ def parse_tables(blob: np.ndarray, header: Header):
     return a.astype(np.int32), b.astype(np.int32)
 
 
+def parse_tables_torch(blobs, n_chunks: int):
+    """Sections A/B parse on the blobs' device (u32 little-endian).
+
+    ``blobs`` is a uint8 tensor of containers, ``(..., L)``; ``n_chunks``
+    is known to the caller.  Returns ``(n_tokens, payload_sizes)``, two
+    ``(..., n_chunks)`` int32 tensors, with no device-to-host copy: the
+    counterpart of the reference's ``parse_tables_jax``, for consumers that
+    decode containers they did not validate on the host (the gradient
+    exchange).  A u32 above 2**31 - 1 wraps to a negative int32, as there.
+    """
+
+    def sec(base):
+        rows = blobs[..., base : base + 4 * n_chunks].to(torch.int32)
+        rows = rows.reshape(*rows.shape[:-1], n_chunks, 4)
+        return (rows[..., 0] | (rows[..., 1] << 8) | (rows[..., 2] << 16)
+                | (rows[..., 3] << 24))
+
+    return sec(HEADER_BYTES), sec(HEADER_BYTES + 4 * n_chunks)
+
+
 def validate_container(blob: np.ndarray, header: Header | None = None):
     """Host-side sanity check before a blob is handed to the decoder.
 

@@ -206,16 +206,72 @@ def decode_blob_lossy(blob, header: fmt.Header, *, impl=None):
     f32-bit-pattern symbols.
     """
     h = header
-    nc, c, mode = h.n_chunks, h.chunk_symbols, h.lossy_mode
-    n_elems, units_pad, _ = fmt.lossy_stream_geometry(nc, c, mode)
+    _, units_pad, _ = fmt.lossy_stream_geometry(h.n_chunks, h.chunk_symbols, h.lossy_mode)
     blob = blob.reshape(-1)
-    dev = blob.device
     inner = _inner_decode(blob[h.sec_lossy_inner : h.sec_lossy_inner + h.inner_total], impl)
     from repro_torch.core import pipeline
 
     shuffled = pipeline.unpack_symbols(inner.reshape(-1), 2)[: 2 * units_pad]
-    units = bitshuffle.unshuffle(shuffled.contiguous(), impl=impl)
+    return _reconstruct(bitshuffle.unshuffle(shuffled.contiguous(), impl=impl), blob, h)
 
+
+def decode_many_lossy(blobs, *, chunk_symbols, n_chunks, mode, inner_method, impl=None):
+    """A batch of method-2 containers whose ``(mode, inner_method)`` the
+    caller knows -> (B, nc, C) int32 f32-bit-pattern symbols.
+
+    ``blobs`` is (B, L) uint8, each row one container's live bytes (zeros
+    or anything beyond).  One device-to-host copy reads every row's header
+    and metadata, each checked against the geometry and the pin.  The inner
+    containers sit at one static offset: raw ones decode in one dispatch of
+    the device's LZSS decoder (tables parsed on the device), ``deflate-full``
+    ones container by container; the bitshuffle inverse runs once over all
+    rows.  Each row's symbols equal ``decode_blob_lossy``'s.
+    """
+    from repro_torch.core import pipeline
+
+    nc, c = n_chunks, chunk_symbols
+    _, units_pad, inner_nc = fmt.lossy_stream_geometry(nc, c, mode)
+    b = blobs.shape[0]
+    sec_inner = fmt.HEADER_BYTES + 8 * nc + fmt.LOSSY_META_FIXED
+    heads = blobs[:, :sec_inner].cpu().numpy()
+    hs = []
+    for i in range(b):
+        h = fmt.parse_header(heads[i])
+        got = (h.method, h.symbol_size, h.chunk_symbols, h.n_chunks, h.lossy_mode,
+               h.inner_method)
+        if got != (fmt.METHOD_LOSSY, 4, c, nc, mode, inner_method):
+            raise ValueError(
+                f"buffer {i}: (method, symbol_size, chunk_symbols, n_chunks, mode, "
+                f"inner_method) = {got}, the batch was pinned to "
+                f"{(fmt.METHOD_LOSSY, 4, c, nc, mode, inner_method)}"
+            )
+        hs.append(h)
+    if inner_method == fmt.METHOD_RAW:
+        inner = blobs[:, sec_inner:]
+        n_tokens, payload_sizes = fmt.parse_tables_torch(inner, inner_nc)
+        syms = pipeline.decompress_many_chunks(
+            inner, n_tokens, payload_sizes, symbol_size=2,
+            chunk_symbols=fmt.LOSSY_INNER_CHUNK_SYMBOLS, n_chunks=inner_nc,
+            decoder="torch-parallel" if impl == "plain" else "auto",
+        )
+    else:
+        syms = torch.stack([
+            _inner_decode(blobs[i, sec_inner : sec_inner + h.inner_total], impl)
+            for i, h in enumerate(hs)
+        ])
+    shuffled = pipeline.unpack_symbols(syms.reshape(b, -1), 2).reshape(b, -1)
+    units = bitshuffle.unshuffle(shuffled[:, : 2 * units_pad].reshape(-1), impl=impl)
+    units = units.reshape(b, units_pad)
+    return torch.stack([_reconstruct(units[i], blobs[i], h) for i, h in enumerate(hs)])
+
+
+def _reconstruct(units, blob, h: fmt.Header):
+    """(units_pad,) int16 units of one container -> (nc, C) int32 symbols:
+    the halves as they are in lossless mode; in quant mode the integrated
+    delta chain, repaired at the outliers, dequantized, outliers overlaid."""
+    nc, c, mode = h.n_chunks, h.chunk_symbols, h.lossy_mode
+    n_elems, _, _ = fmt.lossy_stream_geometry(nc, c, mode)
+    dev = blob.device
     if mode == fmt.LOSSY_MODE_LOSSLESS:
         return units[: 2 * n_elems].contiguous().view(torch.int32).reshape(nc, c)
 

@@ -545,9 +545,11 @@ class DecoderBackend(Protocol):
     token counts (the tensors ``deflate.gather_section`` rebuilds from a
     container) to (N, C) int32 symbols.  A decoder may define
     ``decode_many(blobs, n_tokens, payload_sizes, *, symbol_size,
-    chunk_symbols, n_chunks)`` for a batch of raw containers, (B, L) uint8
+    chunk_symbols, n_chunks)`` for a batch of containers, (B, L) uint8
     blobs and (B, nc) tables -> (B, nc, C) int32, which
-    ``decompress_many_chunks`` calls in place of the section gathers; or
+    ``decompress_many_chunks`` calls in place of the section gathers (with
+    ``method_params=`` too when its caller pins one, as the lossy decoder
+    needs); or
     own the whole batched dispatch through ``decompress_many`` (the same
     arguments plus ``chunks_per_block``, ``mesh`` and ``batch_axis``), as
     ``"sharded"`` does.  A decoder that owns a whole
@@ -714,6 +716,28 @@ class LossyFzDecoder:
             "sections; decode them through decode_blob (lzss.decompress)"
         )
 
+    def decode_many(self, blobs, n_tokens, payload_sizes, *, symbol_size, chunk_symbols,
+                    n_chunks, method_params=()):
+        """A batch of lossy containers whose ``(mode, inner_method)`` the
+        caller pins (the reference's static ``method_params``): the tables
+        are unused (method-2 containers hold zeros there)."""
+        from repro_torch.core import lossy
+
+        if symbol_size != 4:
+            raise ValueError(
+                "lossy-fz containers hold f32 element streams "
+                f"(symbol_size=4); got symbol_size={symbol_size}"
+            )
+        if len(method_params) != 2:
+            raise ValueError(
+                "lossy-fz decode requires method_params=(mode, inner_method) "
+                "recovered from the container header; decode through "
+                "lzss.decompress, or pass method_params explicitly"
+            )
+        mode, inner_method = method_params
+        return lossy.decode_many_lossy(blobs, chunk_symbols=chunk_symbols, n_chunks=n_chunks,
+                                       mode=mode, inner_method=inner_method)
+
     def decode_blob(self, blob, header):
         from repro_torch.core import lossy
 
@@ -873,7 +897,7 @@ def compress_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None):
 
 def decompress_many_chunks(blobs, n_tokens, payload_sizes, *, symbol_size,
                            chunk_symbols, n_chunks, decoder="auto", chunks_per_block=None,
-                           mesh=None, batch_axis=None):
+                           mesh=None, batch_axis=None, method_params=()):
     """(B, L) uint8 blobs + (B, nc) tables -> (B, nc, C) int32 symbols.
 
     ``blobs`` need only cover each container's live bytes: the section
@@ -882,7 +906,10 @@ def decompress_many_chunks(blobs, n_tokens, payload_sizes, *, symbol_size,
     ``mesh`` / ``batch_axis``; other decoders never see them.  Otherwise
     the decoder runs once over all B * nc chunks: through
     its ``decode_many`` hook when it has one, else on the gathered
-    sections.  ``chunks_per_block`` is accepted for the reference's
+    sections.  ``method_params`` is the reference's static per-method pin,
+    passed to a ``decode_many`` hook when given: ``decoder="lossy-fz"``
+    decodes a batch of method-2 containers with ``method_params=(mode,
+    inner_method)``.  ``chunks_per_block`` is accepted for the reference's
     signature and has no effect on the Hopper kernels.
     """
     c, s, nc = chunk_symbols, symbol_size, n_chunks
@@ -895,7 +922,9 @@ def decompress_many_chunks(blobs, n_tokens, payload_sizes, *, symbol_size,
                      batch_axis=batch_axis)
     many = getattr(dec, "decode_many", None)
     if many is not None:
-        return many(blobs, n_tokens, payload_sizes, symbol_size=s, chunk_symbols=c, n_chunks=nc)
+        pin = {"method_params": method_params} if method_params else {}
+        return many(blobs, n_tokens, payload_sizes, symbol_size=s, chunk_symbols=c, n_chunks=nc,
+                    **pin)
     nt = n_tokens.to(torch.int64)
     ps = payload_sizes.to(torch.int64)
     fs = (nt + 7) // 8

@@ -722,3 +722,73 @@ def test_model_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.make_batch(cfg, model.ShapeConfig("s", 8, 2, "train"))
     assert model.init_params(cfg, 0, device="cpu").embed.device.type == "cpu"
+
+
+# ------------------------------------------------- serving and the optimizer
+
+
+@pytest.mark.gpu
+def test_serving_engine_paged_equals_dense_on_the_card(cuda):
+    """The compressed paged tier on the card: tokens bit-identical to dense
+    with prefetch off, on and async; one launch of the one-launch pair a
+    round; the stored blobs those of the CPU store for the same blocks."""
+    from repro_torch.models import model
+    from repro_torch.serving import engine, kvcache
+
+    cfg = _model_cfg("llama3.2-1b", "bfloat16")
+    m = model.init_params(cfg, 0, device=cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    dense = engine.ServingEngine(cfg, m, max_len=64).generate(prompts, 16).tokens
+    for extra in (dict(kv_prefetch=False), {}, dict(async_prefetch=True)):
+        ops.reset_launch_counts()
+        eng = engine.ServingEngine(cfg, m, max_len=64, kv_compress=True, kv_offload=True,
+                                   block_tokens=8, budget_blocks=8, **extra)
+        assert np.array_equal(eng.generate(prompts, 16).tokens, dense), extra
+        st, made = eng.kv_store.stats, ops.launch_counts()
+        assert st.evictions > 0 and st.restores > 0
+        assert made["lz_fused_mono"] == st.eviction_dispatches
+        assert made["lz_decode_mono"] == st.restore_dispatches
+    blocks = [torch.randn(8, 16, 16, generator=torch.Generator().manual_seed(i)).to(
+        torch.bfloat16) for i in range(3)]
+    blocks[1][4:] = blocks[1][:4]
+    card, cpu = kvcache.KVBlockStore(), kvcache.KVBlockStore(device="cpu")
+    card.evict_many([(i, b.to(cuda)) for i, b in enumerate(blocks)])
+    cpu.evict_many(list(enumerate(blocks)))
+    for i, b in enumerate(blocks):
+        assert bytes(card._store[i][2]) == bytes(cpu._store[i][2])
+        assert np.array_equal(card.restore(i), b.view(torch.int16).numpy().view(np.uint16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lossy_eb", [None, 1e-3], ids=["lossless", "lossy"])
+@pytest.mark.parametrize("ratio_cap", [1.0, 2.0])
+def test_compress_leaf_card_bytes_equal_cpu_bytes(cuda, ratio_cap, lossy_eb, monkeypatch):
+    """The gradient wire on the card equals the CPU's bit for bit (run-heavy,
+    noise and sparse leaves, several slabs), and so do the decodes."""
+    from repro_torch.optim import grad_compress as gc
+
+    monkeypatch.setattr(gc, "SLAB_SYMBOLS", 2048)
+    cfg = core.LZSSConfig(symbol_size=2, window=32, chunk_symbols=512)
+    rng = np.random.default_rng(1)
+    sparse = np.zeros(8192, np.float32)
+    sparse[::64] = 0.5
+    for g in (np.repeat(rng.normal(size=512) * 0.1, 16).astype(np.float32),
+              rng.normal(size=8192).astype(np.float32), sparse):
+        x = torch.from_numpy(g)
+        ops.reset_launch_counts()
+        on_card = gc.compress_leaf(x.to(cuda), cfg, ratio_cap, lossy_eb)
+        made = ops.launch_counts()
+        on_cpu = gc.compress_leaf(x, cfg, ratio_cap, lossy_eb)
+        for k in ("payload", "used_lz", "scale"):
+            assert torch.equal(on_card[k].cpu(), on_cpu[k]), k
+        assert made["lz_fused_mono"] == (4 if lossy_eb else 1)
+        back = gc.decompress_leaf(on_card, g.shape, cfg, ratio_cap, lossy_eb)
+        want = gc.decompress_leaf(on_cpu, g.shape, cfg, ratio_cap, lossy_eb)
+        assert torch.equal(back.cpu().view(torch.int32), want.view(torch.int32))
+    big = np.tile(sparse, 16)  # over MIN_COMPRESS_SIZE: compressed
+    stack = torch.from_numpy(np.stack([big, big * 0.5]))
+    kw = dict(ratio_cap=ratio_cap, lossy_eb=lossy_eb)
+    out = gc.pod_exchange_compressed({"w": stack.to(cuda)}, (cuda, cuda), **kw)["w"]
+    want = gc.pod_exchange_compressed({"w": stack}, ("cpu", "cpu"), **kw)["w"]
+    assert out.device.type == "cuda" and torch.equal(out.cpu().view(torch.int32),
+                                                     want.view(torch.int32))
