@@ -94,7 +94,17 @@ Phases, any failure of which exits non-zero:
                 gradients of two pods over a mesh of two cuda:0, ratio_cap
                 1.0 and 2.0 and lossy, equal to the per-pod quantize mean
                 at 1.0, lossy error within eb, sampled wires equal to the
-                plain path's; then one adamw_update)
+                plain path's; then one adamw_update); the trainer
+                (train_phase: llama3.2-1b whole, batch 8 x 256, through
+                launch.train.main: a run killed by a simulated crash at
+                its step-6 save after saving step 3, a run resumed from
+                step 3 with asynchronous checkpoints, a straight run, all
+                equal bit for bit under deterministic algorithms; each
+                save and restore one launch of the one-launch pair a
+                group, timed in parts; step 6 restored alone bit for bit;
+                two groups' containers equal to the plain path's; a lossy
+                checkpoint within eb; two compressed steps over a mesh of
+                two cuda:0 pods; launch.serve.main on the reduced config)
   6. times      host-clock throughput of the main path, the one-launch and
                 split host APIs in turns, a stage breakdown
                 of one raw and one lossy-fz round trip, CUDA-event times of
@@ -123,6 +133,7 @@ device record {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -158,6 +169,9 @@ def card_line() -> str:
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail("run from a repro checkout: src/repro_torch is missing")
+    # cuBLAS's fixed workspaces, which torch.use_deterministic_algorithms
+    # needs in train_phase; read when cuBLAS first starts, so set first
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -578,7 +592,7 @@ def main() -> None:
     # (tools/phase_aftermath.py), so models_phase stands between the
     # exchange and the per-kernel times below, as it did before
     for phase in (autotune_phase, params_phase, sharded_phase, twins_phase, data_phase,
-                  serving_phase, grad_phase, models_phase):
+                  serving_phase, grad_phase, train_phase, models_phase):
         t0 = time.perf_counter()
         phase(inputs, card, err)
         seconds[phase.__name__[: -len("_phase")]] = time.perf_counter() - t0
@@ -1817,6 +1831,453 @@ def grad_phase(inputs, card, err) -> None:
           f"{sum(v.numel() for v in opt['m'].values())} elements each")
     del m, stack, exchanged, opt
     torch.cuda.empty_cache()
+
+
+def train_phase(inputs, card, err) -> None:
+    """The training path on the card: llama3.2-1b whole in bf16 (the zoo's
+    config, no cut), global batch 8 x seq 256, TrainConfig as train.build
+    makes it (lr 3e-4, warm-up 1), through python -m repro_torch.launch.train's
+    main.  (1) A run of 6 steps with --ckpt-every 3 saves step 3
+    synchronously and is killed by a simulated crash (runtime/fault.FaultyFS)
+    at its step-6 save; (2) a second run with --async-ckpt resumes from step
+    3, trains steps 3-5 and saves step 6 asynchronously; (3) step 6 restored
+    alone equals that run's final state bit for bit; (4) two groups'
+    containers equal the plain PyTorch compressor's on the card; (5) a lossy
+    save and restore of that state (lz_lossy_eb on its f32 leaves); (6) a
+    straight run of 6 steps without checkpoints, whose losses the crashed
+    run's (steps 0-5) and the resumed run's (3-5) equal, and whose final
+    state the resumed run's equals, bit for bit, under
+    torch.use_deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG=:4096:8);
+    (7) two make_train_step(compressed=True) steps over a mesh of two cuda:0
+    pods; (8) serve.main on the reduced config.  Every save launches the
+    one-launch compressor once a group, every restore the one-launch decoder
+    once a geometry group (counts reset before each call, read after).
+    Printed: ms a step and tokens/s, peak memory, each save's and restore's
+    seconds split into their parts, the writer's backpressure and stats,
+    the checkpoint's ratio and stored bytes, the largest group.
+
+    A crashed --steps 6 run, not a --steps 3 run, makes the checkpoint:
+    train.build sets total_steps from --steps, and the cosine schedule over
+    3 steps gives step 2 another learning rate than the one over 6."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+    import types
+    import warnings
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs.base import CompressionConfig, ShapeConfig, TrainConfig
+    from repro_torch.core import lzss
+    from repro_torch.data.pipeline import DataConfig, Prefetcher
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib, serve, steps, train
+    from repro_torch.optim import grad_compress as gc_lib
+    from repro_torch.runtime import fault
+
+    dev = torch.device("cuda")
+    cfg = configs.get_config("llama3.2-1b")
+    batch, seq = 8, 256
+    raw_bytes = cfg.param_count(padded=True) * (2 + 4 + 4) + 4
+    root = tempfile.mkdtemp(prefix="gpulz-train-")
+    free = shutil.disk_usage(root).free
+    # steps 3 and 6 (a state that does not compress stores at about 1.04
+    # times its bytes) and the lossy step
+    need = 3 * raw_bytes
+    print(f"[train] {card} | checkpoints under {root} (keep=3, the launcher's default; "
+          f"{free} bytes free, {need} needed: 3 x the {raw_bytes}-byte train state)")
+    if free < need:
+        shutil.rmtree(root, ignore_errors=True)
+        fail(f"train: {free} bytes free under {root}, the phase needs {need}")
+
+    # ---------------------------------------------------- instrumentation
+    split, counts, records, peaks = {}, {}, [], []
+    patched = []
+
+    def patch(owner, attr, new):
+        patched.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, new)
+
+    def timed(owner, attr, key, sync=False, count=None):
+        real = getattr(owner, attr)
+
+        def wrapper(*a, **k):
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                split[key] = split.get(key, 0.0) + time.perf_counter() - t
+                if count:
+                    counts[count] = counts.get(count, 0) + 1
+
+        patch(owner, attr, wrapper)
+
+    timed(ckpt, "_host_bytes", "D2H of the leaves")
+    crc = zlib.crc32
+
+    def timed_crc(*a):
+        t = time.perf_counter()
+        out = crc(*a)
+        split["CRC"] = split.get("CRC", 0.0) + time.perf_counter() - t
+        return out
+
+    patch(ckpt, "zlib", types.SimpleNamespace(crc32=timed_crc))
+    timed(lzss, "compress_many_chunks", "compress dispatch", sync=True)
+    timed(lzss, "compress_many", "compress_many", sync=True, count="groups")
+    timed(lzss, "decompress_many_chunks", "decode dispatch", sync=True)
+    timed(lzss, "decompress_many", "decompress_many", sync=True, count="groups")
+    timed(ckpt, "_from_raw", "H2D of the leaves", sync=True)
+
+    class TimedFS(fault.FaultyFS):
+        """The host seam with each write timed (on whichever thread)."""
+
+        def __init__(self, faults=()):
+            super().__init__(faults)
+            self.write_s, self.written = 0.0, 0
+
+        def write_bytes(self, path, data):
+            t = time.perf_counter()
+            super().write_bytes(path, data)
+            self.write_s += time.perf_counter() - t
+            self.written += len(data)
+
+    crash_at = []  # a FaultSpec planted in the next manager's seam
+
+    def make_fs():
+        return TimedFS(crash_at[:1])
+
+    patch(ckpt, "HostFS", make_fs)
+    real_save, real_load = ckpt.CheckpointManager.save, ckpt.CheckpointManager._load_step
+    real_wait = ckpt.CheckpointManager.wait_until_finished
+
+    def save(self, state, step):
+        split.clear()
+        counts.clear()
+        ops.reset_launch_counts()
+        w0 = self.fs.write_s
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = dict(kind="save", step=step, mode="async" if self.async_writes else "sync",
+                   lossy=self.lz_lossy_eb is not None)
+        try:
+            return real_save(self, state, step)
+        except BaseException as exc:
+            rec["raised"] = type(exc).__name__
+            raise
+        finally:
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            rec.update(s=time.perf_counter() - t0, split=dict(split), groups=counts.get("groups", 0),
+                       launches={k: v for k, v in ops.launch_counts().items() if v},
+                       writes_s=self.fs.write_s - w0, io_wait_s=self.last_save_io_wait_s,
+                       mgr=self, peak=torch.cuda.max_memory_allocated())
+            records.append(rec)
+
+    def load(self, template, step, shardings=None):
+        split.clear()
+        counts.clear()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            return real_load(self, template, step, shardings)
+        finally:
+            torch.cuda.synchronize()
+            records.append(dict(kind="restore", step=step, s=time.perf_counter() - t0,
+                                split=dict(split), groups=counts.get("groups", 0),
+                                launches={k: v for k, v in ops.launch_counts().items() if v},
+                                lossy=self.lz_lossy_eb is not None,
+                                peak=torch.cuda.max_memory_allocated()))
+            peaks.append(records[-1]["peak"])
+
+    def wait(self):
+        t0 = time.perf_counter()
+        real_wait(self)
+        if self.writer is not None:
+            records.append(dict(kind="wait", s=time.perf_counter() - t0,
+                                writes_s=self.fs.write_s, written=self.fs.written,
+                                stats=self.writer_stats()))
+
+    patch(ckpt.CheckpointManager, "save", save)
+    patch(ckpt.CheckpointManager, "_load_step", load)
+    patch(ckpt.CheckpointManager, "wait_until_finished", wait)
+
+    run, run_peaks = {}, []
+    real_make = steps.make_train_step
+
+    def make_train_step(*a, **k):
+        fn, st_sh, b_sh = real_make(*a, **k)
+
+        def step(state, b):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(state, b)
+            torch.cuda.synchronize()
+            run["ms"].append((time.perf_counter() - t) * 1e3)
+            run["losses"].append(float(out[1]["loss"]))
+            run["state"] = out[0]
+            return out
+
+        return step, st_sh, b_sh
+
+    patch(steps, "make_train_step", make_train_step)
+
+    def train_run(label, *flags):
+        run.update(ms=[], losses=[], state=None)
+        argv = ["--steps", "6", "--batch", str(batch), "--seq", str(seq), "--log-every", "1",
+                "--device", str(dev)] + list(flags)
+        print(f"[train] {label}: python -m repro_torch.launch.train {' '.join(argv)}")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                train.main(argv)
+            except fault.SimulatedCrash as exc:
+                print(f"[train] {label}: killed by {exc}")
+            finally:
+                torch.use_deterministic_algorithms(False)
+                # the run's peak, its saves' and restores' included (each
+                # of those resets the count and adds its own to peaks)
+                peaks.append(torch.cuda.max_memory_allocated())
+        named = sorted({str(w.message).split("\n")[0] for w in caught
+                        if "deterministic" in str(w.message)})
+        for msg in named:
+            print(f"[train] {label}: no deterministic CUDA path: {msg}")
+        run_peaks.append(peaks[-1])
+        out = dict(ms=run["ms"], losses=run["losses"], state=run.pop("state"), nondet=named)
+        gc.collect()
+        return out
+
+    def leaves_of(state):
+        """(name, leaf) in the checkpoint's order, each stacked leaf made
+        only when reached (all at once would double the state)."""
+        names, leaves, _ = ckpt._leaf_paths(state)
+        for name, leaf in zip(names, leaves):
+            yield name, ckpt._leaf_array(leaf)
+
+    def same_state(a, b) -> list:
+        """Names of the leaves where two train states differ in any bit."""
+        bad = []
+        for (name, x), (_, y) in zip(leaves_of(a), leaves_of(b)):
+            if x.dtype == torch.bfloat16:
+                x, y = x.view(torch.int16), y.view(torch.int16)
+            if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
+                bad.append(name)
+        return bad
+
+    def show(rec):
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in rec["split"].items())
+        extra = ""
+        if rec["kind"] == "save":
+            extra = (f"; disk writes {rec['writes_s']:.3f} s on the {'writer thread' if rec['mode'] == 'async' else 'caller'}, "
+                     f"last_save_io_wait_s {rec['io_wait_s']!r}")
+        extra += f"; peak memory {rec['peak']} bytes"
+        print(f"[train] {card} | {rec['kind']} of step {rec['step']}"
+              f"{' (' + rec['mode'] + ')' if rec['kind'] == 'save' else ''}"
+              f"{' lossy' if rec.get('lossy') else ''}: {rec['s']:.3f} s; {parts} s{extra}; "
+              f"{rec['groups']} groups, launches {rec['launches']}")
+
+    def want_one_launch(rec):
+        key = "lz_fused_mono" if rec["kind"] == "save" else "lz_decode_mono"
+        if rec["launches"] != {key: rec["groups"]} or not rec["groups"]:
+            fail(f"train: {rec['kind']} of step {rec['step']} launched {rec['launches']} over "
+                 f"{rec['groups']} groups; want {key} once a group and nothing else")
+
+    try:
+        d = f"{root}/run"
+        # (1) the run that saves step 3 and dies at its step-6 save
+        crash_at[:] = [fault.FaultSpec(op="makedirs", path_substr="step_00000006", mode="crash")]
+        first = train_run("crashed run", "--ckpt-every", "3", "--ckpt-dir", d)
+        crash_at[:] = []
+        saves = [r for r in records if r["kind"] == "save"]
+        if len(first["losses"]) != 6 or [r["step"] for r in saves] != [3, 6] or saves[1].get(
+                "raised") != "SimulatedCrash":
+            fail(f"train: the crashed run took {len(first['losses'])} steps and saved "
+                 f"{[(r['step'], r.get('raised')) for r in saves]}")
+        show(saves[0])
+        want_one_launch(saves[0])
+        del first["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (2) the resumed run
+        records.clear()
+        second = train_run("resumed run", "--async-ckpt", "--ckpt-dir", d)
+        rest = [r for r in records if r["kind"] == "restore"]
+        sv = [r for r in records if r["kind"] == "save"]
+        waits = [r for r in records if r["kind"] == "wait"]
+        if [r["step"] for r in rest] != [3] or [r["step"] for r in sv] != [6] or len(
+                second["losses"]) != 3:
+            fail(f"train: the resumed run restored {[r['step'] for r in rest]}, saved "
+                 f"{[r['step'] for r in sv]} and took {len(second['losses'])} steps")
+        for r in rest + sv:
+            show(r)
+            want_one_launch(r)
+        ws = waits[-1]
+        print(f"[train] {card} | async save of step 6: wait_until_finished {ws['s']:.3f} s after "
+              f"save() returned; disk writes {ws['writes_s']:.3f} s for {ws['written']} bytes on "
+              f"the writer thread ({ws['written'] / max(ws['writes_s'], 1e-9) / 1e9:.3f} GB/s); "
+              f"writer_stats() {ws['stats']}")
+        state = second["state"]
+        mgr = sv[0]["mgr"]
+        st6 = mgr.stats(6)
+        print(f"[train] {card} | step 6: stats() ratio {st6['ratio']!r}, stored "
+              f"{st6['stored_bytes']} of {st6['orig_bytes']} bytes")
+        names, leaves, _ = ckpt._leaf_paths(state)
+        groups = {}
+        for name, leaf in leaves_of(state):
+            n = leaf.numel() * leaf.element_size()
+            if n < 1024:
+                continue
+            s = ckpt._symbol_size(leaf.element_size())
+            nc = -(-(-(-n // s)) // mgr.lz_chunk)
+            groups.setdefault((s, 1 << max(0, nc - 1).bit_length()), []).append((name, n, nc))
+        (gs, gb), big = max(groups.items(), key=lambda kv: sum(n for _, n, _ in kv[1]))
+        print(f"[train] {card} | largest group: S={gs}, {len(big)} leaves, "
+              f"{sum(n for _, n, _ in big)} bytes, B x nc = {len(big)} x {gb} = {len(big) * gb} "
+              f"chunks of {mgr.lz_chunk} symbols ({[n for n, _, _ in big]})")
+
+        # (3) the round trip alone
+        records.clear()
+        template = steps.abstract_train_state(cfg, None)
+        back, step = mgr.restore(template, 6, shardings=dev)
+        show(records[-1])
+        want_one_launch(records[-1])
+        bad = same_state(state, back)
+        if step != 6 or bad:
+            fail(f"train: step 6 restored differs from the state saved in {bad[:5]}")
+        print(f"[train] save + restore of step 6: all {len(names)} leaves bit for bit")
+        del back
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (4) two groups' containers against the plain compressor on the card
+        by_name = dict(zip(names, leaves))
+        for s_, b_ in ((4, 8), (2, 16384)):  # the f32 norms' moments; wq and wo
+            if (s_, b_) not in groups:
+                fail(f"train: no group S={s_} bucket {b_} in {sorted(groups)}")
+            members = [n for n, _, _ in groups[(s_, b_)]]
+            plain = lzss.compress_many(
+                [ckpt._leaf_array(by_name[n]) for n in members],
+                dataclasses.replace(mgr._lz_config(s_), backend="torch"), device=dev)
+            for j, n in enumerate(members):
+                disk = np.fromfile(f"{d}/step_00000006/{n.replace('/', '.')}.gplz", np.uint8)
+                if not np.array_equal(disk, plain[j].data):
+                    fail(f"train: {n}'s container differs from the plain path's")
+            print(f"[train] group S={s_} bucket {b_} ({members}): containers equal to the plain "
+                  f"PyTorch compressor's on the card")
+
+        # (5) a lossy save and restore of the same state
+        top = max(float(x.abs().max()) for _, x in leaves_of(state) if x.dtype == torch.float32)
+        eb = float(np.float32(top * 2.0**-10))
+        print(f"[train] lossy: one eb for every f32 leaf (the moments), {eb!r} = 2^-10 x the "
+              f"largest |x| over them ({top!r}): the largest leaf spans +-512 steps of 2 eb, "
+              f"under the quantizer's range, while leaves far below eb (v) code as zeros")
+        records.clear()
+        lm = ckpt.CheckpointManager(f"{root}/lossy", keep=1, lz_lossy_eb=eb, device=dev)
+        lm.save(state, 6)
+        back, _ = lm.restore(template, 6, shardings=dev)
+        for r in records:
+            show(r)
+        made = {k for r in records for k in r["launches"]}
+        if not {"bitshuffle", "lz_fused_mono", "lz_decode_mono", "bitunshuffle"} <= made:
+            fail(f"train: the lossy save and restore launched only {made}")
+        worst, nonfinite = 0.0, 0
+        for (name, x), (_, y) in zip(leaves_of(state), leaves_of(back)):
+            if x.dtype == torch.float32:
+                fin = torch.isfinite(x)
+                nonfinite += int((~fin).sum())
+                if not torch.equal(x[~fin].view(torch.int32), y[~fin].view(torch.int32)):
+                    fail(f"train: {name}'s non-finite elements changed")
+                worst = max(worst, float((x[fin] - y[fin]).abs().max()))
+            elif not torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                                 y.view(torch.int16) if y.dtype == torch.bfloat16 else y):
+                fail(f"train: lossless leaf {name} changed in the lossy checkpoint")
+        if not worst <= eb:
+            fail(f"train: lossy restore error {worst} exceeds eb {eb}")
+        ls = lm.stats(6)
+        print(f"[train] {card} | lossy: max |x' - x| {worst!r} <= eb {eb!r}; {nonfinite} non-finite "
+              f"elements; ratio {ls['ratio']!r}, stored {ls['stored_bytes']} bytes")
+        del back
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (6) the straight run, and the comparisons
+        straight = train_run("straight run")
+        ms = sorted(straight["ms"][1:])
+        med = ms[len(ms) // 2]
+        print(f"[train] {card} | train step (straight run, host clock around synchronize): "
+              f"{straight['ms'][0]:.1f} ms the first, median of the next 5 {med:.3f} ms "
+              f"({batch * seq / med * 1e3:.1f} tokens/s); losses {straight['losses']}")
+        if first["losses"] != straight["losses"] or second["losses"] != straight["losses"][3:]:
+            named = first["nondet"] + second["nondet"] + straight["nondet"]
+            msg = (f"losses differ: crashed {first['losses']}, resumed {second['losses']}, "
+                   f"straight {straight['losses']}")
+            if not named:
+                fail(f"train: {msg}, and no op without a deterministic path was named")
+            print(f"[train] {msg}; ops named above")
+        bad = same_state(straight["state"], state)
+        if bad:
+            named = second["nondet"] + straight["nondet"]
+            if not named:
+                fail(f"train: the resumed run's final state differs in {bad[:5]}")
+            print(f"[train] the resumed state differs in {len(bad)} leaves; ops named above")
+        else:
+            print(f"[train] resumed run == straight run bit for bit: losses of steps 0-5 (crashed "
+                  f"run), 3-5 (resumed run) and all {len(names)} leaves of the final state")
+        del straight, state, mgr
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[train] {card} | peak memory of the runs, saves and restores {max(peaks)} "
+              f"bytes; the runs alone (after their last save or restore): {run_peaks}")
+
+        # (7) two compressed steps over a mesh of two cuda:0 pods
+        tc = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=8,
+                         compression=CompressionConfig(grad_cross_pod=True))
+        pods = mesh_lib.make_host_mesh(data=1, model=1, pod=2, device=dev)
+        run.update(ms=[], losses=[], state=None)
+        fn, _, _ = steps.make_train_step(cfg, tc, pods, ShapeConfig("cli", seq, batch, "train"),
+                                         compressed=True)
+        st = steps.init_train_state(cfg, tc, 0, device=dev)
+        big_leaves = sum(p.numel() >= gc_lib.MIN_COMPRESS_SIZE for p in st["params"].parameters())
+        pre = Prefetcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                    seed=0), 0, device=dev)
+        ops.reset_launch_counts()
+        for _ in range(2):
+            st, m = fn(st, pre.next())
+        made = {k: v for k, v in ops.launch_counts().items() if v}
+        if not big_leaves or made.get("lz_fused_mono") != 2 * 2 * big_leaves or not all(
+                np.isfinite(v) for v in run["losses"]):
+            fail(f"train: compressed steps launched {made} (want lz_fused_mono "
+                 f"{4 * big_leaves}) with losses {run['losses']}")
+        print(f"[train] {card} | 2 compressed steps over a mesh of two cuda:0 pods: "
+              f"{run['ms'][0]:.1f} / {run['ms'][1]:.1f} ms, losses {run['losses']}; launches "
+              f"{made} ({big_leaves} leaves of >= {gc_lib.MIN_COMPRESS_SIZE} elements a pod)")
+        del st, fn, run["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for owner, attr, real in reversed(patched):
+            setattr(owner, attr, real)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (8) the serving entry point on the reduced config
+    t0 = time.perf_counter()
+    serve.main(["--new-tokens", "8", "--device", str(dev)])
+    print(f"[train] {card} | python -m repro_torch.launch.serve --new-tokens 8: "
+          f"{time.perf_counter() - t0:.3f} s")
 
 
 RAW_KERNELS = ("lz_kernel1", "lz_global_offsets", "lz_scatter", "lz_decode", "lz_fused_mono",

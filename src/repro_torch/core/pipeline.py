@@ -466,9 +466,16 @@ def _containers_many(backend, symbols, cfg, orig_bytes):
     one, else one container at a time on the symbols' device."""
     if cfg.mesh is not None:
         return _sharded_many(symbols, cfg, orig_bytes)
-    outs = [backend.compress(symbols[r], cfg, int(orig_bytes[r]))
-            for r in range(symbols.shape[0])]
-    return torch.stack([o[0] for o in outs]), [int(o[1]) for o in outs]
+    # each row goes straight into the (B, cap) output (the rows share a
+    # capacity), so the batch is never held twice on the device
+    out, totals = None, []
+    for r in range(symbols.shape[0]):
+        buf, total = backend.compress(symbols[r], cfg, int(orig_bytes[r]))
+        if out is None:
+            out = buf.new_empty((symbols.shape[0],) + tuple(buf.shape))
+        out[r] = buf
+        totals.append(int(total))
+    return out, totals
 
 
 class EntropyBackend:

@@ -10,9 +10,20 @@ its input, as the reference's does without a mesh context.
 
 The port's codec mesh is a sequence of devices on one axis, ``"data"``;
 ``batch_spec`` and ``zero_spec`` take the data axis's size from its length.
+A ``launch/mesh.Mesh`` (the reference's axis names and sizes over torch
+devices) is such a sequence too; for it they read the named axes' sizes,
+and ``batch_axes`` follows the reference's rule.
+
+Where the reference builds a ``NamedSharding``, ``params_shardings`` and
+``zero_shardings`` give a ``Placement``: the device a leaf lives on (the
+mesh's first: the port runs a model on one device) and its spec.
 """
 
 from __future__ import annotations
+
+import dataclasses
+
+import torch
 
 MESH_AXES = ("data",)  # the axis names of every port mesh
 
@@ -90,23 +101,54 @@ def spec_for(axes: tuple) -> tuple:
     return _spec(*(one(a) for a in axes))
 
 
-def _mesh_size(mesh) -> int:
+def _devices(mesh) -> tuple:
     from repro_torch.sharding.batch import mesh_devices
 
-    return len(mesh_devices(mesh))
+    return mesh_devices(mesh)
+
+
+def _axis_size(mesh, axis: str) -> int:
+    """The size of a named mesh axis: a ``Mesh``'s own, else the length of
+    the device sequence for ``"data"`` (1 for any other name)."""
+    shape = getattr(mesh, "shape", None)
+    if isinstance(shape, dict):
+        return shape.get(axis, 1)
+    return len(_devices(mesh)) if axis == "data" else 1
 
 
 def batch_axes(mesh) -> tuple:
-    """Mesh axes that carry the batch dimension: the reference's rule gives
-    ("pod", "data") on a mesh with a pod axis, else ("data",), and every
-    port mesh has the one axis "data"."""
-    del mesh
-    return ("data",)
+    """Mesh axes that carry the batch dimension: ("pod", "data") on a mesh
+    with a pod axis, else ("data",) (a device sequence's one axis)."""
+    return ("pod", "data") if "pod" in getattr(mesh, "axis_names", MESH_AXES) else ("data",)
 
 
 def batch_spec(mesh, batch_size: int) -> tuple:
     """Shard batch if divisible by the batch axes; else replicate (B=1)."""
-    return _spec(batch_axes(mesh)) if batch_size % _mesh_size(mesh) == 0 else _spec(None)
+    ax = batch_axes(mesh)
+    total = 1
+    for a in ax:
+        total *= _axis_size(mesh, a)
+    return _spec(ax) if batch_size % total == 0 else _spec(None)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a leaf lives: its device and the reference's spec for it."""
+
+    device: torch.device
+    spec: tuple = ()
+
+
+def home_device(mesh) -> torch.device:
+    """The device the port runs a model on: the mesh's first."""
+    return _devices(mesh)[0]
+
+
+def params_shardings(axes_tree, mesh):
+    """``{key: Placement}`` (or the axes tree's own nesting) of the params'
+    specs on the mesh's home device."""
+    dev = home_device(mesh)
+    return _map_axes(lambda a: Placement(dev, spec_for(a)), axes_tree)
 
 
 def compute_spec(axes: tuple) -> tuple:
@@ -136,7 +178,7 @@ def zero_spec(spec: tuple, shape: tuple, mesh) -> tuple:
     Picks the first unsharded dim divisible by the data axis; leaves the
     param's own (model) sharding intact.
     """
-    data = _mesh_size(mesh)
+    data = _axis_size(mesh, "data")
     parts = list(spec) + [None] * (len(shape) - len(spec))
     if any(p == "data" or (isinstance(p, tuple) and "data" in p) for p in parts):
         return _spec(*parts)  # already FSDP-sharded over data
@@ -145,6 +187,19 @@ def zero_spec(spec: tuple, shape: tuple, mesh) -> tuple:
             parts[i] = "data"
             return _spec(*parts)
     return _spec(*parts)
+
+
+def zero_shardings(axes, abstract_params, mesh) -> dict:
+    """Optimizer-state placements: ``axes`` the port's flat ``{state_dict
+    key: logical axes}`` (``model.param_axes``), ``abstract_params`` a
+    model (or a dict of tensors) with those keys, for the shapes.  A layer
+    key carries one layer's axes and shape, so the ZeRO dim is chosen
+    among the layer's own dims."""
+    shapes = (abstract_params.state_dict() if hasattr(abstract_params, "state_dict")
+              else abstract_params)
+    dev = home_device(mesh)
+    return {k: Placement(dev, zero_spec(spec_for(a), tuple(shapes[k].shape), mesh))
+            for k, a in axes.items()}
 
 
 def activation_spec(mesh, batch_size: int) -> tuple:

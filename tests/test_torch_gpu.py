@@ -792,3 +792,88 @@ def test_compress_leaf_card_bytes_equal_cpu_bytes(cuda, ratio_cap, lossy_eb, mon
     want = gc.pod_exchange_compressed({"w": stack}, ("cpu", "cpu"), **kw)["w"]
     assert out.device.type == "cuda" and torch.equal(out.cpu().view(torch.int32),
                                                      want.view(torch.int32))
+
+
+def _ckpt_leaves(tree):
+    from repro_torch.checkpoint import manager as ckpt
+
+    names, leaves, _ = ckpt._leaf_paths(tree)
+    return names, [ckpt._leaf_array(x) for x in leaves]
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("async_writes", [False, True], ids=["sync", "async"])
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path, async_writes, monkeypatch):
+    """The reduced llama3.2-1b's train state on the card (moments made
+    non-zero): a save launches the one-launch compressor once a group, a
+    restore the one-launch decoder once a geometry group; the restore is
+    bit-exact and lies on the card; the step directory equals the one the
+    CPU path writes for the same state, byte for byte."""
+    import filecmp
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps
+
+    cfg = configs.reduced_config(configs.get_config("llama3.2-1b"))
+    state = steps.init_train_state(cfg, TrainConfig(), 0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for part in ("m", "v"):
+        state["opt"][part] = {n: torch.randn(v.shape, generator=g, device=cuda) * 1e-3
+                              for n, v in state["opt"][part].items()}
+    calls = {"compress_many": 0, "decompress_many": 0}
+    for name in calls:
+        real = getattr(ckpt.lzss, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(ckpt.lzss, name, counted)
+    mgr = ckpt.CheckpointManager(str(tmp_path / "card"), async_writes=async_writes, device=cuda)
+    ops.reset_launch_counts()
+    mgr.save(state, 2)
+    made = {k: v for k, v in ops.launch_counts().items() if v}
+    mgr.wait_until_finished()
+    assert calls["compress_many"] > 1 and made == {"lz_fused_mono": calls["compress_many"]}
+    ops.reset_launch_counts()
+    back, step = mgr.restore_latest(steps.abstract_train_state(cfg, None), shardings=cuda)
+    made = {k: v for k, v in ops.launch_counts().items() if v}
+    assert step == 2 and made == {"lz_decode_mono": calls["decompress_many"]}
+    names, want = _ckpt_leaves(state)
+    _, got = _ckpt_leaves(back)
+    for name, a, b in zip(names, want, got):
+        assert b.device.type == "cuda" and torch.equal(_bits(a), _bits(b)), name
+    cpu_state = {"params": back["params"].to("cpu"),
+                 "opt": {p: {n: v.cpu() for n, v in back["opt"][p].items()} for p in ("m", "v")},
+                 "step": back["step"].cpu()}
+    ckpt.CheckpointManager(str(tmp_path / "cpu"), device="cpu").save(cpu_state, 2)
+    left, right = tmp_path / "card" / "step_00000002", tmp_path / "cpu" / "step_00000002"
+    files = sorted(p.name for p in left.iterdir())
+    assert files == sorted(p.name for p in right.iterdir())
+    assert filecmp.cmpfiles(left, right, files, shallow=False)[0] == files
+
+
+@pytest.mark.gpu
+def test_reference_step_restores_onto_the_card(cuda):
+    """A step directory written by the reference package's manager
+    (tests/golden_ckpt) restores onto the card through the one-launch
+    decoder, bit for bit."""
+    import _ckpt_golden as golden
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.sharding.rules import Placement
+
+    mgr = CheckpointManager(golden.DIRECTORY, device=cuda)
+    ops.reset_launch_counts()
+    got, step = mgr.restore(golden.torch_tree(), golden.STEP, shardings=Placement(cuda, ()))
+    assert step == golden.STEP and ops.launch_counts()["lz_decode_mono"] >= 1
+    names, want = _ckpt_leaves(golden.torch_tree())
+    _, have = _ckpt_leaves(got)
+    for name, a, b in zip(names, want, have):
+        assert b.device.type == "cuda" and torch.equal(_bits(a).to(cuda), _bits(b)), name
