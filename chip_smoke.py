@@ -104,7 +104,16 @@ Phases, any failure of which exits non-zero:
                 group, timed in parts; step 6 restored alone bit for bit;
                 two groups' containers equal to the plain path's; a lossy
                 checkpoint within eb; two compressed steps over a mesh of
-                two cuda:0 pods; launch.serve.main on the reduced config)
+                two cuda:0 pods; launch.serve.main on the reduced config);
+                the last slice's modules (bench_phase: the dry run of
+                llama3.2-1b x {train_4k, prefill_32k, decode_32k} on both
+                production meshes, traced on meta, and its prefill (4,
+                2048) counted on meta and on the card, equal, beside its
+                measured time; the paper's tables 1-3 and fig_lossy at 64
+                and 128 MiB through their twins, one launch a host call;
+                kv_paging and sharded_batch at the reference's defaults;
+                after step 6's times, the four examples as subprocesses,
+                each exiting 0)
   6. times      host-clock throughput of the main path, the one-launch and
                 split host APIs in turns, a stage breakdown
                 of one raw and one lossy-fz round trip, CUDA-event times of
@@ -142,12 +151,6 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 MIB = 1 << 20
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, and the int32 rate of the
-# CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz (the 67 TFLOP/s fp32
-# figure counts 128 FP32 lanes and 2 flops per FMA; int32 has half the
-# lanes and one op per instruction).
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
 
 
 def fail(msg: str) -> None:
@@ -182,8 +185,11 @@ def main() -> None:
     from repro_torch import core
     from repro_torch.core import deflate, format as fmt, pipeline as pl
     from repro_torch.data import datasets, decode_edges, scatter_edges, walk_edges
+    from repro_torch.benchmarks.kernel_roofline import bound_ms, kernel1_compares, kernel_bytes_ops
     from repro_torch.kernels import (
         _build, lz_decode, lz_decode_mono, lz_entropy, lz_fused, lz_match, lz_scatter, ops)
+    # the H100 data sheet's rates, from their one home
+    from repro_torch.launch.roofline import HBM_BW
 
     dev = torch.device("cuda")
     card = card_line()
@@ -592,7 +598,7 @@ def main() -> None:
     # (tools/phase_aftermath.py), so models_phase stands between the
     # exchange and the per-kernel times below, as it did before
     for phase in (autotune_phase, params_phase, sharded_phase, twins_phase, data_phase,
-                  serving_phase, grad_phase, train_phase, models_phase):
+                  serving_phase, grad_phase, train_phase, bench_phase, models_phase):
         t0 = time.perf_counter()
         phase(inputs, card, err)
         seconds[phase.__name__[: -len("_phase")]] = time.perf_counter() - t0
@@ -634,73 +640,71 @@ def main() -> None:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
-    pos = nc * c
     comp = kernel1_compares(sym, w, c)
     flag_total, pay_total = (int(v) for v in tot[0].tolist())
     spec = {
         "lz_kernel1": dict(
             kernel=lambda: lz_match.lz_kernel1_cuda(sym, **kw),
             plain=lambda: lz_match.lz_kernel1_plain(sym, **kw),
-            library=None, bytes=4 * pos + 13 * pos + 8 * nc, ops=comp,
+            library=None, cost=kernel_bytes_ops("lz_kernel1", nc=nc, c=c, compares=comp),
             source="src/repro_torch/csrc/lz_match.cu",
             replaces="src/repro/kernels/lz_match.py:136"),
         "lz_global_offsets": dict(
             kernel=lambda: lz_scatter.global_offsets_cuda(*args2),
             plain=lambda: lz_scatter.global_offsets_plain(*args2),
-            library=lambda: torch.cumsum(fs_ps, 1), bytes=8 * nc + 8 * nc + 8, ops=2 * nc,
+            library=lambda: torch.cumsum(fs_ps, 1), cost=kernel_bytes_ops("lz_global_offsets", nc=nc),
             source="src/repro_torch/csrc/lz_scatter.cu",
             replaces="src/repro/kernels/lz_scatter.py:55"),
         "lz_scatter": dict(
             kernel=lambda: lz_scatter.scatter_cuda(*args3, **kw3),
             plain=lambda: lz_scatter.scatter_plain(*args3, **kw3),
-            library=None, bytes=17 * pos + 8 * nc + cap, ops=pos,
+            library=None, cost=kernel_bytes_ops("lz_scatter", nc=nc, c=c, cap=cap),
             source="src/repro_torch/csrc/lz_scatter.cu",
             replaces="src/repro/kernels/lz_scatter.py:159"),
         "lz_decode": dict(
             kernel=lambda: lz_decode.lz_decode_cuda(flags, pay, nt, symbol_size=s),
             plain=lambda: lz_decode.lz_decode_plain(flags, pay, nt, symbol_size=s),
-            library=None, bytes=flag_total + pay_total + 4 * nc + 4 * pos, ops=pos,
+            library=None, cost=kernel_bytes_ops("lz_decode", nc=nc, c=c, flag_bytes=flag_total,
+                                                payload_bytes=pay_total),
             source="src/repro_torch/csrc/lz_decode.cu",
             replaces="src/repro/kernels/lz_decode.py:122"),
-        # the symbols in, the container (zeros included) and its tables out
         "lz_fused_mono": dict(
             kernel=lambda: lz_fused.lz_fused_mono_cuda(sym[None], **kwm),
             plain=lambda: lz_fused.lz_fused_mono_plain(sym[None], **kwm), plain_reps=1,
-            library=None, bytes=4 * pos + cap + 8 * nc + 8, ops=comp,
+            library=None, cost=kernel_bytes_ops("lz_fused_mono", nc=nc, c=c, cap=cap, compares=comp),
             source="src/repro_torch/csrc/lz_fused.cu",
             replaces="src/repro/kernels/lz_fused.py:63"),
-        # the compact sections and the tables in, 4 bytes out per symbol
         "lz_decode_mono": dict(
             kernel=lambda: lz_decode_mono.lz_decode_mono_cuda(*argsm, **kwd),
             plain=lambda: lz_decode_mono.lz_decode_mono_plain(*argsm, **kwd),
-            library=None, bytes=flag_total + pay_total + 8 * nc + 4 * pos, ops=pos,
+            library=None, cost=kernel_bytes_ops("lz_decode_mono", nc=nc, c=c, flag_bytes=flag_total,
+                                                payload_bytes=pay_total),
             source="src/repro_torch/csrc/lz_decode_mono.cu",
             replaces="src/repro/kernels/lz_decode_mono.py:55"),
-        # the symbols in, lengths and offsets out; the walk's compares
         "lz_match": dict(
             kernel=lambda: lz_match.lz_match_cuda(sym, window=w, symbol_size=s),
             plain=lambda: lz_match.lz_match_plain(sym, window=w, symbol_size=s),
-            library=None, bytes=4 * pos + 8 * pos, ops=comp,
+            library=None, cost=kernel_bytes_ops("lz_match", nc=nc, c=c, compares=comp),
             source="src/repro_torch/csrc/lz_match.cu",
             replaces="src/repro/kernels/lz_match.py:90"),
         **container_kernel_spec(stage_in),
     }
     record = []
     for name, k in spec.items():
-        t_bytes = k["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = k["ops"] / INT32_OPS_PER_S * 1e3
+        nbytes, nops = k["cost"]
+        bound, bound_by = bound_ms(nbytes, nops)
         row = dict(
             name=name, route="cuda", source=k["source"], replaces=k["replaces"],
             launches=launches[name], max_abs_err=err[name],
             ms=ms(k["kernel"], 10), plain_ms=ms(k["plain"], k.get("plain_reps", 2)),
-            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_ms=bound, bound_by=bound_by,
             library_ms=ms(k["library"], 10) if k["library"] else None,
         )
         record.append(row)
         lib = "" if row["library_ms"] is None else f", {row['library_ms']:.4f} ms library"
         print(f"[time] {card} | {name}: {row['ms']:.4f} ms kernel, {row['plain_ms']:.4f} ms plain"
               f"{lib}, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
-              f"({k['bytes']} bytes, {k['ops']} int32 ops), at {k.get('at', f'nc={nc} C={c} S={s} W={w}')}")
+              f"({nbytes} bytes, {nops} int32 ops), at {k.get('at', f'nc={nc} C={c} S={s} W={w}')}")
     t = {row["name"]: row["ms"] for row in record}
     # The practical ceiling of a permutation of the bitshuffle pair's bytes:
     # a device-to-device copy of as many (not the same function: no library
@@ -742,7 +746,8 @@ def main() -> None:
     occ = lz_scatter.scatter_occupancy(chunk_symbols=c, symbol_size=s)
     print(f"[time] {card} | lz_scatter alone (C entry, preallocated blob) {alone:.4f} ms, "
           f"through the wrapper (its zeroed blob) {t['lz_scatter']:.4f} ms, bound "
-          f"{(17 * pos + 8 * nc + cap) / HBM_BYTES_PER_S * 1e3:.4f} ms; {occ['registers']} "
+          f"{kernel_bytes_ops('lz_scatter', nc=nc, c=c, cap=cap)[0] / HBM_BW * 1e3:.4f} ms; "
+          f"{occ['registers']} "
           f"registers, {occ['blocks']} blocks per SM, {occ['layout']} layout, at nc={nc} C={c} "
           f"S={s}")
     # Kernel II alone (its C entry into preallocated outputs) beside its
@@ -777,7 +782,7 @@ def main() -> None:
               f"x.add_(1) {launch_floor:.4f} ms; D2D copy moving as many bytes ({src2.numel()} "
               f"read, as many written) {ms(lambda: dst2.copy_(src2), 50):.4f} ms; torch.cumsum "
               f"of the (2, rows x nc) sizes {ms(lambda: torch.cumsum(both, 2), 50):.4f} ms; "
-              f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} bytes)")
+              f"bound {nbytes / HBM_BW * 1e3:.5f} ms ({nbytes} bytes)")
     hbuf, hstart, hlen = stage_in["hist"]
     hout = torch.zeros(256, dtype=torch.int32, device=dev)
     one_value = torch.full((hlen,), 0x7F, dtype=torch.uint8, device=dev)
@@ -795,7 +800,8 @@ def main() -> None:
               f"{ms(launch, 10):.4f} ms, cold {ms_cold(launch, 10):.4f} ms; through the wrapper "
               f"hot {ms(wrapper, 10):.4f} ms, cold {ms_cold(wrapper, 10):.4f} ms; torch.bincount "
               f"hot {ms(lambda: torch.bincount(b8[start:start + length], minlength=256), 10):.4f}"
-              f" ms; bound {(length + 4 * 256) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+              f" ms; bound {kernel_bytes_ops('byte_histogram', length=length)[0] / HBM_BW * 1e3:.4f}"
+              f" ms")
     sel = t["lz_kernel1"] - t["lz_match"]
     print(f"[time] {card} | compressor split, hurr-quant 128 MiB: walk (lz_match) "
           f"{t['lz_match']:.4f} ms, selection + scan (lz_kernel1 - lz_match) {sel:.4f} ms "
@@ -837,6 +843,11 @@ def main() -> None:
         gms = ms(lambda: lz_entropy.huffman_gap_decode_cuda(*gargs, sub=SUB), 10)
         print(f"[time] {card} | huffman_gap_decode on {label}: {gms:.4f} ms ({gargs[1].numel()} "
               f"sub-blocks, {gbits} bits, longest code {glen} bits)")
+    # the examples last, after every timed phase: their processes load
+    # the host and the card while they run
+    t0 = time.perf_counter()
+    run_examples(card)
+    print(f"[phases] {card} | seconds of the four examples: {time.perf_counter() - t0:.1f}")
     print(f"[kernels] {launches} max |kernel - plain| {err}")
     print(card)
     print(json.dumps({"kernels": record}))
@@ -1095,6 +1106,208 @@ def data_phase(inputs, card, err) -> None:
             fail(f"data: the batch of step {step} is not make_batch_for_step's on the card")
     print(f"[data] Prefetcher(device='cuda'): 4 steps of {tuple(got.shape)} int32 on the card, "
           f"equal to make_batch_for_step")
+
+
+def bench_phase(inputs, card, err) -> None:
+    """The last slice's modules on the card.  (1) The dry run
+    (launch/dryrun.py): llama3.2-1b x {train_4k, prefill_32k, decode_32k}
+    on the 16x16 and 2x16x16 meshes, traced on meta, each record holding
+    the reference's keys; then llama3.2-1b whole prefill (4, 2048) traced
+    on meta and run on card tensors under roofline.CountingMode: the FLOPs
+    and bytes equal exactly, and the Roofline terms of that count (one
+    chip) stand beside the prefill's CUDA-event time.  (2) The paper's
+    tables at real sizes through their twins: table1 at 64 MiB a dataset,
+    table2 on nyx-quant at 128 MiB, table3 on 64 MiB fields, fig_lossy on
+    hurr-field at 64 MiB with a deflate-full inner stage; the one-launch
+    compressor once a compress call and the one-launch decoder once a
+    decompress call of the raw tables, and the histogram, the gap decoder
+    and the bitshuffle pair on the lossy path.  (3) kv_paging and
+    sharded_batch at the reference's defaults (paged tokens bit-identical to
+    dense at every budget; sharded containers equal to the unsharded
+    dispatch, over 8 x cuda:0).  The four examples run at the end of the
+    script (run_examples).  Records go to chiprun_out/."""
+    import json
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.benchmarks import (
+        fig_lossy, kv_paging, sharded_batch, table1_ratio, table2_throughput, table3_usecase)
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline, steps as steps_lib
+    from repro_torch.models import model
+
+    out = ROOT / "chiprun_out"
+    rec_dir = out / "torch_dryrun"
+    rec_dir.mkdir(parents=True, exist_ok=True)
+    seconds = {}
+
+    # (1) the dry run
+    t0 = time.perf_counter()
+    keys = {"arch", "shape", "mesh", "chips", "compressed_grads", "compile_s", "memory",
+            "flops_per_device", "bytes_per_device", "collectives", "roofline", "hlo_bytes",
+            "direct_scanned_cost", "per_device"}
+    for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
+        for multi_pod in (False, True):
+            rec, _ = dryrun.lower_cell("llama3.2-1b", shape_name, multi_pod, device="cuda")
+            if set(rec) != keys or set(rec["memory"]) != {"argument_size_in_bytes",
+                                                          "output_size_in_bytes"}:
+                fail(f"bench: dry-run record keys {sorted(rec)} / {sorted(rec['memory'])}")
+            with open(rec_dir / f"llama3.2-1b__{shape_name}__{rec['mesh']}.json", "w") as f:
+                json.dump(rec, f, indent=1)
+            r = rec["roofline"]
+            print(f"[bench] dryrun llama3.2-1b {shape_name} {rec['mesh']}: trace "
+                  f"{rec['compile_s']} s, {rec['flops_per_device']!r} flops and "
+                  f"{rec['bytes_per_device']!r} bytes a device, collectives "
+                  f"{rec['collectives']['total']} bytes ({rec['collectives']['count']}), "
+                  f"compute {r['compute_s']:.4e} s, memory {r['memory_s']:.4e} s, collective "
+                  f"{r['collective_s']:.4e} s, {r['dominant']}, roofline fraction "
+                  f"{r['roofline_fraction']:.4f} (reckoned from the H100 data sheet)")
+    cfg = configs.get_config("llama3.2-1b")
+    shape = ShapeConfig("prefill_4x2048", 2048, 4, "prefill")
+    t1 = time.perf_counter()
+    _, meta = roofline.count(steps_lib.prefill_step, model.abstract_params(cfg),
+                             model.input_specs(cfg, shape), cfg=cfg)
+    meta_s = time.perf_counter() - t1
+    params = model.init_params(cfg, 0, device="cuda")
+    batch = model.make_batch(cfg, shape, seed=1, device="cuda")
+    logits, real = roofline.count(steps_lib.prefill_step, params, batch, cfg=cfg)
+    if real != meta:
+        fail(f"bench: the card's prefill counts {real} differ from the meta trace's {meta}")
+    if logits.shape != (4, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+        fail("bench: the counted prefill gives wrong or non-finite logits")
+    steps_lib.prefill_step(params, batch, cfg=cfg)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(3):
+        steps_lib.prefill_step(params, batch, cfg=cfg)
+    b.record()
+    torch.cuda.synchronize()
+    measured = a.elapsed_time(b) / 3 / 1e3
+    rl = roofline.Roofline("llama3.2-1b", shape.name, "1", 1, real["flops"], real["bytes"], 0.0,
+                           roofline.model_flops_for(cfg, shape), {})
+    print(f"[bench] {card} | llama3.2-1b prefill (4, 2048): meta trace {meta_s:.2f} s, "
+          f"{meta['flops']} flops and {meta['bytes']} bytes, equal on the card; measured "
+          f"{measured * 1e3:.3f} ms (CUDA events, mean of 3); Roofline compute_s "
+          f"{rl.compute_s * 1e3:.3f} ms ({rl.compute_s / measured:.4f} of measured), memory_s "
+          f"{rl.memory_s * 1e3:.3f} ms ({rl.memory_s / measured:.4f} of measured)")
+    del params, batch, logits
+    torch.cuda.empty_cache()
+    seconds["dryrun"] = time.perf_counter() - t0
+
+    # (2) the paper's tables.  The host calls each twin makes, from its rows:
+    # a timed row is time_fn's warm-up and timed calls plus one more
+    # compress (table1 1 + 1, tables 2 and 3 1 + 2); table2's decompress row
+    # one compress and 1 + 2 decompresses; table3 one timed compress a field
+    # (three rows) and one for the checkpoint moments' row.
+    def host_calls(label, rows):
+        if label == "table1":
+            return 3 * len(rows), 0
+        if label == "table2":
+            return 3 * (len(rows) - 1) + 1, 3
+        return 4 * ((len(rows) - 1) // 3 + 1), 0
+
+    def raw_table(label, fn):
+        rows = path_launches(f"bench {label}", ("lz_fused_mono",), fn)
+        made = ops.launch_counts()
+        calls = host_calls(label, rows)
+        if (made["lz_fused_mono"], made["lz_decode_mono"]) != calls:
+            fail(f"bench {label}: {made} for {calls} host calls, not one launch a call")
+        return rows, calls
+
+    tables = {}
+    for label, fn in (
+            ("table1", lambda: table1_ratio.run(nbytes=64 * MIB)),
+            ("table2", lambda: table2_throughput.run(nbytes=128 * MIB)),
+            ("table3", lambda: table3_usecase.run(nbytes=64 * MIB))):
+        t0 = time.perf_counter()
+        tables[label], calls = raw_table(label, fn)
+        print(f"[bench] {card} | {label}: {len(tables[label])} rows, {calls[0]} "
+              f"compress and {calls[1]} decompress calls, one launch each")
+        seconds[label] = time.perf_counter() - t0
+    with open(out / "BENCH_torch_tables.json", "w") as f:
+        json.dump({"card": card, "note": "host API, host clock: (seconds, ratio or GB/s)",
+                   "tables": tables}, f, indent=1)
+    t0 = time.perf_counter()
+    lossy = path_launches("bench fig_lossy", (
+        "lz_fused_mono", "lz_decode", "byte_histogram", "huffman_gap_decode", "bitshuffle",
+        "bitunshuffle"), lambda: fig_lossy.run(
+            nbytes=64 * MIB, sweep_nbytes=64 * MIB, inner="deflate-full",
+            out_json=str(out / "BENCH_torch_lossy.json")))
+    for key, e in lossy["ebs"].items():
+        print(f"[bench] {card} | fig_lossy hurr-field 64 MiB eb {key}: ratio {e['ratio']!r}, "
+              f"max err {e['max_abs_err']!r}, compress {e['compress_gb_per_s']:.4f} GB/s, "
+              f"decode {e['decode_gb_per_s']:.4f} GB/s (host API, host clock)")
+    seconds["fig_lossy"] = time.perf_counter() - t0
+
+    # (3) kv_paging and sharded_batch at the reference's defaults
+    t0 = time.perf_counter()
+    kv = path_launches("bench kv_paging", ("lz_fused_mono", "lz_decode_mono"),
+                       lambda: kv_paging.paging_sweep(out_json=str(out / "BENCH_torch_kv.json")))
+    for e in kv["budgets"]:
+        if not e["exact"]:
+            fail(f"bench: kv_paging at budget {e['budget_blocks']} is not exact")
+    print(f"[bench] {card} | kv_paging (reduced llama3.2-1b): dense "
+          f"{kv['dense']['tokens_per_s']:.1f} tok/s; " + "; ".join(
+              f"budget {e['budget_blocks']}: {e['tokens_per_s']:.1f} tok/s, {e['evictions']} "
+              f"evictions, {e['restores']} restores, exact" for e in kv["budgets"]))
+    sh = path_launches("bench sharded_batch", ("lz_fused_mono", "lz_decode_mono"),
+                       lambda: sharded_batch.main(["--out-json",
+                                                   str(out / "BENCH_torch_sharded.json")]))
+    print(f"[bench] {card} | sharded_batch: {sh['buffers']} buffers over {sh['n_devices']} x "
+          f"cuda:0, byte-identical; " + "; ".join(
+              f"{k} compress {v['compress_seconds_per_call'] * 1e3:.3f} ms, decompress "
+              f"{v['decompress_seconds_per_call'] * 1e3:.3f} ms" for k, v in sh["results"].items()))
+    seconds["kv+sharded"] = time.perf_counter() - t0
+    print("[bench] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+
+
+def run_examples(card) -> None:
+    """The four examples as subprocesses on the card, in a temporary
+    directory that is also their TMPDIR: one train_tiny_lm in the
+    background while the other three run one after another; each must
+    exit 0 (their own asserts)."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    # two at a time: half the host's cores each, so that their CPU threads
+    # do not oversubscribe it
+    threads = str(max(1, (os.cpu_count() or 2) // 2))
+    tmp = tempfile.mkdtemp()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS=threads, TMPDIR=tmp)
+    t0 = time.perf_counter()
+
+    def start(name, *args):
+        return subprocess.Popen([sys.executable, "-m", f"repro_torch.examples.{name}", *args],
+                                env=env, cwd=tmp, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    procs = {}
+    try:
+        procs["train_tiny_lm"] = start("train_tiny_lm", "--ckpt-dir", os.path.join(tmp, "ckpt"))
+        for name in ("quickstart", "compress_checkpoint", "serve_batched", "train_tiny_lm"):
+            if name not in procs:
+                procs[name] = start(name)
+            proc = procs[name]
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                fail(f"bench: example {name} ran past 600 s")
+            if proc.returncode != 0:
+                fail(f"bench: example {name} exited {proc.returncode}:\n{stdout[-2000:]}"
+                     f"\n{stderr[-3000:]}")
+            tail = "\n".join(stdout.strip().splitlines()[-4:])
+            print(f"[bench] {card} | example {name}: exit 0 ({time.perf_counter() - t0:.1f} s "
+                  f"after the first started); last lines:\n{tail}")
+    finally:  # a failure leaves no example running
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def models_phase(inputs, card, err) -> None:
@@ -2801,6 +3014,7 @@ def container_kernel_spec(stage_in) -> dict:
     the main path gives them."""
     import torch
 
+    from repro_torch.benchmarks.kernel_roofline import kernel_bytes_ops
     from repro_torch.kernels import lz_bitshuffle, lz_entropy
 
     buf, start, length = stage_in["hist"]
@@ -2814,7 +3028,7 @@ def container_kernel_spec(stage_in) -> dict:
             kernel=lambda: lz_entropy.byte_histogram_cuda(buf, start, length),
             plain=lambda: lz_entropy.byte_histogram_plain(buf, start, length),
             library=lambda: torch.bincount(buf[start : start + length], minlength=256),
-            bytes=length + 4 * 256, ops=length,
+            cost=kernel_bytes_ops("byte_histogram", length=length),
             at=f"the {length}-byte payload section of the hurr-quant 128 MiB container",
             source="src/repro_torch/csrc/lz_entropy.cu",
             replaces="src/repro/kernels/lz_entropy.py:65"),
@@ -2822,64 +3036,25 @@ def container_kernel_spec(stage_in) -> dict:
             kernel=lambda: lz_entropy.huffman_gap_decode_cuda(*gap_args, sub=SUB),
             plain=lambda: lz_entropy.huffman_gap_decode_plain(*gap_args, sub=SUB),
             plain_reps=1, library=None,
-            # the stream, 12 bytes of entry point and 1 byte out per codeword's
-            # sub-block slot; one range test per code length tried (the
-            # stream's bit count) and one order lookup per codeword
-            bytes=(nbits + 7) // 8 + 12 * nsub + 4 * (3 * 16 + 256) + SUB * nsub,
-            ops=nbits + SUB * nsub,
+            cost=kernel_bytes_ops("huffman_gap_decode", nbits=nbits, nsub=nsub),
             at=f"the same payload section: {nsub} sub-blocks, {nbits} bits",
             source="src/repro_torch/csrc/lz_entropy.cu",
             replaces="src/repro/kernels/lz_entropy.py:118"),
         "bitshuffle": dict(
             kernel=lambda: lz_bitshuffle.bitshuffle_cuda(units, out=sh_out),
             plain=lambda: lz_bitshuffle.bitshuffle_plain(units),
-            library=None, bytes=4 * n_units, ops=16 * n_units,
+            library=None, cost=kernel_bytes_ops("bitshuffle", n_units=n_units),
             at=f"{n_units} units ({n_units // 512} blocks: 128 MiB of f32 in quant mode)",
             source="src/repro_torch/csrc/lz_bitshuffle.cu",
             replaces="src/repro/kernels/lz_bitshuffle.py:32"),
         "bitunshuffle": dict(
             kernel=lambda: lz_bitshuffle.bitunshuffle_cuda(shuffled, out=un_out),
             plain=lambda: lz_bitshuffle.bitunshuffle_plain(shuffled),
-            library=None, bytes=4 * n_units, ops=16 * n_units,
+            library=None, cost=kernel_bytes_ops("bitunshuffle", n_units=n_units),
             at=f"{n_units} units ({n_units // 512} blocks: 128 MiB of f32 in quant mode)",
             source="src/repro_torch/csrc/lz_bitshuffle.cu",
             replaces="src/repro/kernels/lz_bitshuffle.py:44"),
     }
-
-
-def kernel1_compares(sym, window: int, c: int) -> int:
-    """Symbol compares a per-thread far-to-near window walk makes on ``sym``:
-    the operations of the walking kernels' bound.  The warp walk makes other
-    compares; the bound keeps this count so that it stays comparable with
-    the bounds recorded for the per-thread walk it replaced.
-
-    For each position the walk visits offsets d = min(i, W) .. 1 while the
-    cap min(d, 255, C - i) exceeds the best length so far; a visited offset
-    costs one compare, plus min(run, cap - 1) more when its first symbol
-    matches.  Computed offset by offset on the card, like the plain matcher.
-    """
-    import torch
-
-    from repro_torch.core.match import capped_run_lengths
-
-    x = sym.to(torch.int32)
-    nc = x.shape[0]
-    idx = torch.arange(c, device=x.device, dtype=torch.int32).expand(nc, c)
-    padded = torch.cat([torch.zeros(nc, window, dtype=torch.int32, device=x.device), x], 1)
-    best = torch.zeros_like(x)
-    total = 0
-    for d in range(window, 0, -1):
-        cap = torch.clamp(c - idx, max=min(d, 255))
-        visited = (idx >= d) & (cap > best)
-        eq = (x == padded[:, window - d : window - d + c]) & (idx >= d)
-        levels = 0
-        while (1 << levels) < min(d, 255):
-            levels += 1
-        run = torch.minimum(capped_run_lengths(eq, levels), cap)
-        hit = eq & visited
-        total += int(visited.sum()) + int(torch.minimum(run, cap - 1)[hit].sum())
-        best = torch.where(visited & (run > best), run, best)
-    return total
 
 
 if __name__ == "__main__":

@@ -97,11 +97,12 @@ def _dispatch_one(xf, params, cfg, cap):
     gate_vals, expert_idx = gate_vals[:, :k], expert_idx[:, :k]  # (n, k)
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
 
-    # load-balancing aux loss (Switch/GShard form)
+    # load-balancing aux loss (Switch/GShard form); the one-hot as a
+    # compare, which every device runs as the same ops (F.one_hot checks
+    # its range on the host off meta), so a meta trace counts the card's
     me = torch.mean(probs, dim=0)
-    ce = torch.mean(
-        torch.sum(F.one_hot(expert_idx, e.num_experts).float(), dim=1), dim=0
-    ) / k
+    one_hot = expert_idx[..., None] == torch.arange(e.num_experts, device=dev)
+    ce = torch.mean(torch.sum(one_hot.float(), dim=1), dim=0) / k
     aux = MOE_AUX_ALPHA * e.num_experts * torch.sum(me * ce)
 
     # sort-based position-in-expert

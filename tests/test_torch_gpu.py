@@ -877,3 +877,53 @@ def test_reference_step_restores_onto_the_card(cuda):
     _, have = _ckpt_leaves(got)
     for name, a, b in zip(names, want, have):
         assert b.device.type == "cuda" and torch.equal(_bits(a).to(cuda), _bits(b)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-v2-236b", "mamba2-2.7b"])
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_meta_trace_counts_the_cards_program(cuda, arch, kind):
+    """The dry run's count on meta equals the same step's on card tensors
+    (reduced configs): the trace is the card's program."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import roofline, steps
+    from repro_torch.models import model
+
+    cfg = configs.reduced_config(configs.get_config(arch))
+    shape = ShapeConfig("x", 128, 4, kind)
+    batch = model.make_batch(cfg, shape, seed=1, device=cuda)
+    if kind == "prefill":
+        _, meta = roofline.count(steps.prefill_step, model.abstract_params(cfg),
+                                 model.input_specs(cfg, shape), cfg=cfg)
+        _, real = roofline.count(steps.prefill_step, model.init_params(cfg, 0, device=cuda),
+                                 batch, cfg=cfg)
+    else:
+        tc = TrainConfig()
+        _, meta = roofline.count(steps.train_step, steps.abstract_train_state(cfg, tc),
+                                 model.input_specs(cfg, shape), cfg=cfg, traincfg=tc)
+        _, real = roofline.count(steps.train_step, steps.init_train_state(cfg, tc, 0, device=cuda),
+                                 batch, cfg=cfg, traincfg=tc)
+    assert real == meta
+
+
+@pytest.mark.gpu
+def test_twins_on_the_card(cuda, tmp_path):
+    """fig_lossy's and kv_paging's checks hold on the card at small sizes,
+    with the kernels launched."""
+    from repro_torch.benchmarks import fig_lossy, kv_paging, table1_ratio
+
+    ops.reset_launch_counts()
+    rec = fig_lossy.run(nbytes=1 << 20, sweep_nbytes=1 << 16, inner="deflate-full",
+                        out_json=str(tmp_path / "l.json"))
+    assert all(e["bound_ok"] for e in rec["ebs"].values()) and rec["platform"] == "cuda"
+    kv = kv_paging.paging_sweep(batch=2, max_len=32, new_tokens=16, out_json=str(tmp_path / "k.json"))
+    assert all(e["exact"] for e in kv["budgets"])
+    rows = table1_ratio.run(nbytes=1 << 16, chunks=(2048,), windows=(128,), symbols=(2,))
+    cpu = table1_ratio.run(nbytes=1 << 16, chunks=(2048,), windows=(128,), symbols=(2,),
+                           device="cpu")
+    assert {k: v[1] for k, v in rows.items()} == {k: v[1] for k, v in cpu.items()}
+    made = ops.launch_counts()
+    assert all(made[k] for k in ("lz_fused_mono", "lz_decode_mono", "lz_decode",
+                                 "byte_histogram", "huffman_gap_decode", "bitshuffle",
+                                 "bitunshuffle"))

@@ -44,7 +44,7 @@ from repro_torch.core import format as fmt, pipeline as pl  # noqa: E402
 from repro_torch.data import datasets, scatter_edges as edges  # noqa: E402
 from repro_torch.kernels import lz_entropy, lz_match, lz_scatter  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
 card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                       capture_output=True, text=True).stdout.strip()
 print(f"[ab] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
