@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import format as fmt
+from repro_torch.runtime import trace
 
 MAX_CODE_LEN = 15  # nibble-packed codebook: one hex digit per symbol
 STORED_LEN = 8  # escape code length: identity byte code, no expansion
@@ -152,6 +153,9 @@ def canonical_tables(lengths, device="cpu") -> dict:
     lets at most one length match.
     """
     if isinstance(lengths, torch.Tensor):
+        if lengths.device.type != "cpu":
+            trace.count("bytes_d2h", lengths.numel() * lengths.element_size())
+            trace.count("host_syncs", 1)
         lengths = lengths.cpu().numpy()
     l = np.asarray(lengths, np.int64).reshape(-1)
     live = l > 0
@@ -170,6 +174,8 @@ def canonical_tables(lengths, device="cpu") -> dict:
     lc = np.clip(l, 0, MAX_CODE_LEN)
     codes = np.where(live, first[lc] + rank - base[lc], 0)
     tabs = dict(lengths=l, codes=codes, first=first, count=count, base=base, order=order)
+    trace.count("bytes_h2d", 4 * sum(v.size for v in tabs.values()))  # six pageable copies
+    trace.count("host_syncs", len(tabs))
     return {k: torch.from_numpy(v.astype(np.int32)).to(device) for k, v in tabs.items()}
 
 
@@ -211,7 +217,11 @@ def encode_section(buf, start: int, length: int, lengths, *, cap: int, sub: int 
     code = tabs["codes"][byte]
     csum = torch.cumsum(l, 0, dtype=torch.int64)
     off = csum - l
-    nbits = int(csum[-1]) if length else 0
+    nbits = 0
+    if length:
+        trace.count("bytes_d2h", csum.element_size())
+        trace.count("host_syncs", 1)
+        nbits = int(csum[-1])
     w = code << (24 - l - (off & 7).to(torch.int32))  # < 2**24: int32 is enough
     base = off >> 3
     stream = torch.zeros(cap + 8, dtype=torch.int32, device=dev)
@@ -295,43 +305,56 @@ def compress_entropy(symbols, cfg, orig_bytes=None, *, impl=None):
     sub = 1 << fmt.DEFAULT_SUB_LOG2
     orig = nc * c * s if orig_bytes is None else int(orig_bytes)
     lz = pipeline.get_backend("torch" if impl == "plain" else "auto", dev)
-    raw_blobs, _ = pipeline.lzss_many(lz, symbols[None], cfg, [orig])
-    raw = raw_blobs[0]
     sec = fmt.HEADER_BYTES + 8 * nc
-    head = fmt.parse_header(raw[: fmt.HEADER_BYTES].cpu().numpy())
+    with trace.span("entropy.lz", dev):
+        raw_blobs, _ = pipeline.lzss_many(lz, symbols[None], cfg, [orig])
+        raw = raw_blobs[0]
+        trace.count("bytes_d2h", fmt.HEADER_BYTES)
+        trace.count("host_syncs", 1)
+        head = fmt.parse_header(raw[: fmt.HEADER_BYTES].cpu().numpy())
     f_tot, p_tot = head.flag_bytes, head.payload_bytes
     flag_cap, pay_cap = nc * ((c + 7) // 8), nc * c * s
 
-    hists = torch.stack([
-        byte_histogram(raw, sec, f_tot, impl=impl),
-        byte_histogram(raw, sec + f_tot, p_tot, impl=impl),
-    ]).cpu().numpy()  # the one 2 KiB device-to-host copy for both sections
-    lf = container_code_lengths(hists[0])
-    lp = container_code_lengths(hists[1])
-    stream_f, fbits, gaps_f = encode_section(raw, sec, f_tot, lf, cap=flag_cap)
-    stream_p, pbits, gaps_p = encode_section(raw, sec + f_tot, p_tot, lp, cap=pay_cap)
+    with trace.span("entropy.histogram", dev):
+        hists = torch.stack([
+            byte_histogram(raw, sec, f_tot, impl=impl),
+            byte_histogram(raw, sec + f_tot, p_tot, impl=impl),
+        ])
+        trace.count("bytes_d2h", hists.numel() * hists.element_size())
+        trace.count("host_syncs", 1)
+        hists = hists.cpu().numpy()  # the one 2 KiB device-to-host copy for both sections
+    with trace.span("entropy.code_lengths", dev):
+        lf = container_code_lengths(hists[0])
+        lp = container_code_lengths(hists[1])
+    with trace.span("entropy.encode", dev):
+        stream_f, fbits, gaps_f = encode_section(raw, sec, f_tot, lf, cap=flag_cap)
+        stream_p, pbits, gaps_p = encode_section(raw, sec + f_tot, p_tot, lp, cap=pay_cap)
 
-    cap2 = fmt.entropy_max_compressed_bytes(nc * c * s, s, c)
-    out = torch.zeros(cap2, dtype=torch.uint8, device=dev)
-    out[: fmt.HEADER_BYTES] = torch.frombuffer(bytearray(fmt._header_bytes(
-        symbol_size=s, window=cfg.window, chunk_symbols=c, n_chunks=nc, orig_bytes=orig,
-        payload_total=p_tot, flag_total=f_tot, method=fmt.METHOD_HUFFMAN,
-        sub_log2=fmt.DEFAULT_SUB_LOG2,
-    )), dtype=torch.uint8)
-    out[fmt.HEADER_BYTES : sec] = raw[fmt.HEADER_BYTES : sec]  # the A/B tables
-    meta = torch.cat([_codebook(lf), _codebook(lp), _u64(fbits), _u64(pbits)])
-    out[sec : sec + fmt.ENTROPY_META_FIXED] = meta.to(dev)
+    with trace.span("entropy.assemble", dev):
+        cap2 = fmt.entropy_max_compressed_bytes(nc * c * s, s, c)
+        out = torch.zeros(cap2, dtype=torch.uint8, device=dev)
+        out[: fmt.HEADER_BYTES] = torch.frombuffer(bytearray(fmt._header_bytes(
+            symbol_size=s, window=cfg.window, chunk_symbols=c, n_chunks=nc, orig_bytes=orig,
+            payload_total=p_tot, flag_total=f_tot, method=fmt.METHOD_HUFFMAN,
+            sub_log2=fmt.DEFAULT_SUB_LOG2,
+        )), dtype=torch.uint8)
+        out[fmt.HEADER_BYTES : sec] = raw[fmt.HEADER_BYTES : sec]  # the A/B tables
+        meta = torch.cat([_codebook(lf), _codebook(lp), _u64(fbits), _u64(pbits)])
+        out[sec : sec + fmt.ENTROPY_META_FIXED] = meta.to(dev)
+        # the header and the metadata: two pageable copies
+        trace.count("bytes_h2d", fmt.HEADER_BYTES + meta.numel())
+        trace.count("host_syncs", 2)
 
-    nsub_f, nsub_p = -(-f_tot // sub), -(-p_tot // sub)
-    gbase_f = sec + fmt.ENTROPY_META_FIXED
-    gbase_p = gbase_f + 4 * nsub_f
-    out[gbase_f:gbase_p] = _u32_le(gaps_f[:nsub_f])
-    sbase_f = gbase_p + 4 * nsub_p
-    out[gbase_p:sbase_f] = _u32_le(gaps_p[:nsub_p])
-    fbytes, pbytes = (fbits + 7) // 8, (pbits + 7) // 8
-    sbase_p = sbase_f + fbytes
-    out[sbase_f:sbase_p] = stream_f[:fbytes]
-    out[sbase_p : sbase_p + pbytes] = stream_p[:pbytes]
+        nsub_f, nsub_p = -(-f_tot // sub), -(-p_tot // sub)
+        gbase_f = sec + fmt.ENTROPY_META_FIXED
+        gbase_p = gbase_f + 4 * nsub_f
+        out[gbase_f:gbase_p] = _u32_le(gaps_f[:nsub_f])
+        sbase_f = gbase_p + 4 * nsub_p
+        out[gbase_p:sbase_f] = _u32_le(gaps_p[:nsub_p])
+        fbytes, pbytes = (fbits + 7) // 8, (pbits + 7) // 8
+        sbase_p = sbase_f + fbytes
+        out[sbase_f:sbase_p] = stream_f[:fbytes]
+        out[sbase_p : sbase_p + pbytes] = stream_p[:pbytes]
     return out, sbase_p + pbytes
 
 
@@ -354,20 +377,25 @@ def decode_blob_entropy(blob, header: fmt.Header, *, impl=None):
     sub = 1 << fmt.DEFAULT_SUB_LOG2
     dev = blob.device
     blob = blob.reshape(-1)
-    books = blob[h.sec_meta : h.sec_meta + 256].cpu().numpy().astype(np.int64)
-    lf = np.stack([books[:128] & 0xF, books[:128] >> 4], axis=1).reshape(-1)
-    lp = np.stack([books[128:] & 0xF, books[128:] >> 4], axis=1).reshape(-1)
-    gaps_f = _read_u32(blob, h.sec_gap_flags, h.n_sub_flags)
-    gaps_p = _read_u32(blob, h.sec_gap_payload, h.n_sub_payload)
-    flag_flat = decode_section(blob, h.sec_stream_flags, gaps_f, lf, count=h.flag_bytes,
-                               cap=nc * cb, sub=sub, impl=impl)
-    pay_flat = decode_section(blob, h.sec_stream_payload, gaps_p, lp, count=h.payload_bytes,
-                              cap=nc * c * s, sub=sub, impl=impl)
+    with trace.span("entropy.gap_decode", dev):
+        trace.count("bytes_d2h", 256)
+        trace.count("host_syncs", 1)
+        books = blob[h.sec_meta : h.sec_meta + 256].cpu().numpy().astype(np.int64)
+        lf = np.stack([books[:128] & 0xF, books[:128] >> 4], axis=1).reshape(-1)
+        lp = np.stack([books[128:] & 0xF, books[128:] >> 4], axis=1).reshape(-1)
+        gaps_f = _read_u32(blob, h.sec_gap_flags, h.n_sub_flags)
+        gaps_p = _read_u32(blob, h.sec_gap_payload, h.n_sub_payload)
+        flag_flat = decode_section(blob, h.sec_stream_flags, gaps_f, lf, count=h.flag_bytes,
+                                   cap=nc * cb, sub=sub, impl=impl)
+        pay_flat = decode_section(blob, h.sec_stream_payload, gaps_p, lp,
+                                  count=h.payload_bytes, cap=nc * c * s, sub=sub, impl=impl)
 
-    n_tokens = _read_u32(blob, h.sec_a, nc)
-    fsz = (n_tokens + 7) // 8
-    psz = _read_u32(blob, h.sec_b, nc)
-    flags = deflate.gather_section(flag_flat, 0, fsz, torch.cumsum(fsz, 0) - fsz, cb)
-    payload = deflate.gather_section(pay_flat, 0, psz, torch.cumsum(psz, 0) - psz, c * s)
+    with trace.span("entropy.gather", dev):
+        n_tokens = _read_u32(blob, h.sec_a, nc)
+        fsz = (n_tokens + 7) // 8
+        psz = _read_u32(blob, h.sec_b, nc)
+        flags = deflate.gather_section(flag_flat, 0, fsz, torch.cumsum(fsz, 0) - fsz, cb)
+        payload = deflate.gather_section(pay_flat, 0, psz, torch.cumsum(psz, 0) - psz, c * s)
     dec = pipeline.get_decoder("torch-parallel" if impl == "plain" else "auto", dev)
-    return dec.decode(flags, payload, n_tokens.to(torch.int32), symbol_size=s)
+    with trace.span("entropy.lz", dev):
+        return dec.decode(flags, payload, n_tokens.to(torch.int32), symbol_size=s)

@@ -61,6 +61,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.runtime import trace
+
 MAGIC = (0x47, 0x50, 0x4C, 0x5A)  # "GPLZ"
 VERSION = 2
 SUPPORTED_VERSIONS = (1, 2)
@@ -310,6 +312,8 @@ def write_header_and_tables(out, *, symbol_size, window, chunk_symbols,
         method=int(method), sub_log2=int(sub_log2),
     )
     out[:HEADER_BYTES] = torch.frombuffer(bytearray(head), dtype=torch.uint8)
+    trace.count("bytes_h2d", HEADER_BYTES)  # a pageable copy: the host waits
+    trace.count("host_syncs", 1)
     sec_a = HEADER_BYTES
     sec_b = sec_a + 4 * n_chunks
     for base, table in ((sec_a, n_tokens), (sec_b, payload_sizes)):

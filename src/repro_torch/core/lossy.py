@@ -32,6 +32,7 @@ import torch
 from repro_torch.core import bitshuffle
 from repro_torch.core import format as fmt
 from repro_torch.core import quant
+from repro_torch.runtime import trace
 
 assert bitshuffle.BLOCK_UNITS == fmt.LOSSY_BLOCK_UNITS
 
@@ -53,6 +54,13 @@ def _rcp(eb2: np.float32) -> np.float32:
     return np.float32(1.0) / np.float32(eb2)
 
 
+def _scalar(v: np.float32, device) -> torch.Tensor:
+    """An f32 scalar on ``device``: one pageable host-to-device copy."""
+    trace.count("bytes_h2d", 4)
+    trace.count("host_syncs", 1)
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
 def _prequant(x: torch.Tensor, rcp: np.float32):
     """round / clip pre-quantization, NaN pinned to 0 (core/quant.py rules).
 
@@ -60,7 +68,7 @@ def _prequant(x: torch.Tensor, rcp: np.float32):
     code clipped to +-2**30.  ``torch.round`` rounds half to even, as
     ``jnp.round`` does.
     """
-    r = torch.tensor(rcp, dtype=torch.float32, device=x.device)
+    r = _scalar(rcp, x.device)
     qf = torch.round(x * r)
     nan = torch.isnan(qf)
     q = torch.clamp(torch.where(nan, 0.0, qf), -INT30, INT30).to(torch.int32)
@@ -99,36 +107,40 @@ def compress_lossy(symbols, cfg, orig_bytes=None, *, impl=None):
     n_elems, units_pad, inner_nc = fmt.lossy_stream_geometry(nc, c, mode)
     flat = symbols.reshape(-1).to(torch.int32).contiguous()
 
-    if mode == fmt.LOSSY_MODE_QUANT:
-        x = flat.view(torch.float32)
-        eb2 = np.float32(2.0 * eb32)
-        qf, nan, q = _prequant(x, _rcp(eb2))
-        delta = torch.diff(q, prepend=torch.zeros_like(q[:1])) + quant.CENTER
-        sat = (delta < quant.CODE_MIN) | (delta > quant.CODE_MAX) | (qf.abs() >= INT30) | nan
-        # The decoder rebuilds exactly q.float() * eb2: simulate it, and make
-        # an exact outlier of any element the f32 round trip takes past the
-        # bound.  ~(err <= eb) also catches non-finite x.  The 2-ulp guard
-        # keeps the check conservative against a fused multiply-subtract.
-        recon = q.to(torch.float32) * torch.tensor(eb2, device=dev)
-        guard = recon.abs() * np.float32(2.0**-22)
-        sat = sat | ~((recon - x).abs() + guard <= np.float32(eb32))
-        units_live = torch.where(sat, quant.CENTER, delta)
-        units_live = torch.where(units_live >= 1 << 15, units_live - (1 << 16), units_live)
-        units_live = units_live.to(torch.int16)
-    else:
-        units_live = flat.view(torch.int16)  # (lo, hi) halves of each element
-        sat = None
+    with trace.span("lossy.quantize", dev):
+        if mode == fmt.LOSSY_MODE_QUANT:
+            x = flat.view(torch.float32)
+            eb2 = np.float32(2.0 * eb32)
+            qf, nan, q = _prequant(x, _rcp(eb2))
+            delta = torch.diff(q, prepend=torch.zeros_like(q[:1])) + quant.CENTER
+            sat = (delta < quant.CODE_MIN) | (delta > quant.CODE_MAX) | (qf.abs() >= INT30) | nan
+            # The decoder rebuilds exactly q.float() * eb2: simulate it, and make
+            # an exact outlier of any element the f32 round trip takes past the
+            # bound.  ~(err <= eb) also catches non-finite x.  The 2-ulp guard
+            # keeps the check conservative against a fused multiply-subtract.
+            recon = q.to(torch.float32) * _scalar(eb2, dev)
+            guard = recon.abs() * np.float32(2.0**-22)
+            sat = sat | ~((recon - x).abs() + guard <= np.float32(eb32))
+            units_live = torch.where(sat, quant.CENTER, delta)
+            units_live = torch.where(units_live >= 1 << 15, units_live - (1 << 16), units_live)
+            units_live = units_live.to(torch.int16)
+        else:
+            units_live = flat.view(torch.int16)  # (lo, hi) halves of each element
+            sat = None
 
-    units = torch.zeros(units_pad, dtype=torch.int16, device=dev)
-    units[: units_live.shape[0]] = units_live
-    inner_c = fmt.LOSSY_INNER_CHUNK_SYMBOLS
-    inner_bytes = torch.zeros(inner_nc * inner_c * 2, dtype=torch.uint8, device=dev)
-    bitshuffle.shuffle(units, impl=impl, out=inner_bytes)  # the prefix; the tail stays 0
-    inner_syms = pipeline.pack_symbols(inner_bytes, 2).reshape(inner_nc, inner_c)
+    with trace.span("lossy.bitshuffle", dev):
+        units = torch.zeros(units_pad, dtype=torch.int16, device=dev)
+        units[: units_live.shape[0]] = units_live
+        inner_c = fmt.LOSSY_INNER_CHUNK_SYMBOLS
+        inner_bytes = torch.zeros(inner_nc * inner_c * 2, dtype=torch.uint8, device=dev)
+        bitshuffle.shuffle(units, impl=impl, out=inner_bytes)  # the prefix; the tail stays 0
+        inner_syms = pipeline.pack_symbols(inner_bytes, 2).reshape(inner_nc, inner_c)
 
-    inner_name = pipeline.resolve_backend(cfg.lossy_inner, dev)
-    inner_method = pipeline.container_method(inner_name)
-    inner_buf, inner_total = _inner_compress(inner_syms, cfg, inner_name, 2 * units_pad, impl)
+    with trace.span("lossy.inner", dev):
+        inner_name = pipeline.resolve_backend(cfg.lossy_inner, dev)
+        inner_method = pipeline.container_method(inner_name)
+        inner_buf, inner_total = _inner_compress(inner_syms, cfg, inner_name, 2 * units_pad,
+                                                 impl)
     inner_cap = fmt.lossy_inner_capacity(inner_nc, inner_method)
     assert inner_buf.shape[0] == inner_cap, (
         f"inner backend {inner_name!r} emitted a {inner_buf.shape[0]}-byte "
@@ -137,41 +149,47 @@ def compress_lossy(symbols, cfg, orig_bytes=None, *, impl=None):
 
     sec_meta = fmt.HEADER_BYTES + 8 * nc
     sec_inner = sec_meta + fmt.LOSSY_META_FIXED
-    out_cap = sec_inner + inner_cap + (8 * n_elems if mode == fmt.LOSSY_MODE_QUANT else 0)
-    out = torch.zeros(out_cap, dtype=torch.uint8, device=dev)
-    zeros_nc = torch.zeros(nc, dtype=torch.int32, device=dev)
-    fmt.write_header_and_tables(
-        out, symbol_size=4, window=cfg.window, chunk_symbols=c, n_chunks=nc,
-        orig_bytes=nc * c * 4 if orig_bytes is None else orig_bytes,
-        payload_total=0, flag_total=0, n_tokens=zeros_nc, payload_sizes=zeros_nc,
-        method=fmt.METHOD_LOSSY, sub_log2=0,
-    )
-    out[sec_inner : sec_inner + inner_cap] = inner_buf
+    with trace.span("lossy.outliers", dev):
+        if mode == fmt.LOSSY_MODE_QUANT:
+            trace.count("host_syncs", 1)  # the host waits for nonzero's count
+            idx = torch.nonzero(sat).reshape(-1)  # ascending: the rank order
+            n_out = idx.shape[0]
+            pairs = torch.stack([idx.to(torch.int32), flat[idx]], dim=1)
+            total = sec_inner + inner_total + 8 * n_out
+            eb_bits = int(np.float32(eb32).view(np.uint32))
+        else:
+            n_out = 0
+            total = sec_inner + inner_total
+            eb_bits = 0
 
-    if mode == fmt.LOSSY_MODE_QUANT:
-        idx = torch.nonzero(sat).reshape(-1)  # ascending: the rank order
-        n_out = idx.shape[0]
-        obase = sec_inner + inner_total
-        pairs = torch.stack([idx.to(torch.int32), flat[idx]], dim=1)
-        out[obase : obase + 8 * n_out] = pairs.contiguous().view(torch.uint8).reshape(-1)
-        total = obase + 8 * n_out
-        eb_bits = int(np.float32(eb32).view(np.uint32))
-    else:
-        n_out = 0
-        total = sec_inner + inner_total
-        eb_bits = 0
+    with trace.span("lossy.assemble", dev):
+        out_cap = sec_inner + inner_cap + (8 * n_elems if mode == fmt.LOSSY_MODE_QUANT else 0)
+        out = torch.zeros(out_cap, dtype=torch.uint8, device=dev)
+        zeros_nc = torch.zeros(nc, dtype=torch.int32, device=dev)
+        fmt.write_header_and_tables(
+            out, symbol_size=4, window=cfg.window, chunk_symbols=c, n_chunks=nc,
+            orig_bytes=nc * c * 4 if orig_bytes is None else orig_bytes,
+            payload_total=0, flag_total=0, n_tokens=zeros_nc, payload_sizes=zeros_nc,
+            method=fmt.METHOD_LOSSY, sub_log2=0,
+        )
+        out[sec_inner : sec_inner + inner_cap] = inner_buf
+        if n_out:
+            obase = sec_inner + inner_total
+            out[obase : obase + 8 * n_out] = pairs.contiguous().view(torch.uint8).reshape(-1)
 
-    meta = (
-        eb_bits.to_bytes(4, "little")
-        + bytes([mode, 1, inner_method, 0])  # mode, quantization ndim, inner method
-        + n_out.to_bytes(4, "little")
-        + int(inner_total).to_bytes(4, "little")
-        + n_elems.to_bytes(8, "little")
-        + bytes(8)
-    )
-    out[sec_meta : sec_meta + fmt.LOSSY_META_FIXED] = torch.frombuffer(
-        bytearray(meta), dtype=torch.uint8
-    )
+        meta = (
+            eb_bits.to_bytes(4, "little")
+            + bytes([mode, 1, inner_method, 0])  # mode, quantization ndim, inner method
+            + n_out.to_bytes(4, "little")
+            + int(inner_total).to_bytes(4, "little")
+            + n_elems.to_bytes(8, "little")
+            + bytes(8)
+        )
+        out[sec_meta : sec_meta + fmt.LOSSY_META_FIXED] = torch.frombuffer(
+            bytearray(meta), dtype=torch.uint8
+        )
+        trace.count("bytes_h2d", len(meta))  # a pageable copy
+        trace.count("host_syncs", 1)
     return out, total
 
 
@@ -181,9 +199,10 @@ def _inner_decode(inner_blob, impl):
 
     nc = int.from_bytes(inner_blob[12:16].cpu().numpy().tobytes(), "little")
     # the header, the tables and (method 1) the fixed entropy metadata
-    ih = fmt.parse_header(
-        inner_blob[: fmt.HEADER_BYTES + 8 * nc + fmt.ENTROPY_META_FIXED].cpu().numpy()
-    )
+    head = inner_blob[: fmt.HEADER_BYTES + 8 * nc + fmt.ENTROPY_META_FIXED]
+    trace.count("bytes_d2h", 4 + head.numel())  # two blocking reads
+    trace.count("host_syncs", 2)
+    ih = fmt.parse_header(head.cpu().numpy())
     if ih.method == fmt.METHOD_HUFFMAN:
         return entropy.decode_blob_entropy(inner_blob, ih, impl=impl)
     tables = inner_blob[ih.sec_a : ih.sec_flags].clone().view(torch.int32).reshape(2, -1)
@@ -208,11 +227,16 @@ def decode_blob_lossy(blob, header: fmt.Header, *, impl=None):
     h = header
     _, units_pad, _ = fmt.lossy_stream_geometry(h.n_chunks, h.chunk_symbols, h.lossy_mode)
     blob = blob.reshape(-1)
-    inner = _inner_decode(blob[h.sec_lossy_inner : h.sec_lossy_inner + h.inner_total], impl)
+    dev = blob.device
+    with trace.span("lossy.inner", dev):
+        inner = _inner_decode(blob[h.sec_lossy_inner : h.sec_lossy_inner + h.inner_total], impl)
     from repro_torch.core import pipeline
 
-    shuffled = pipeline.unpack_symbols(inner.reshape(-1), 2)[: 2 * units_pad]
-    return _reconstruct(bitshuffle.unshuffle(shuffled.contiguous(), impl=impl), blob, h)
+    with trace.span("lossy.unshuffle", dev):
+        shuffled = pipeline.unpack_symbols(inner.reshape(-1), 2)[: 2 * units_pad]
+        units = bitshuffle.unshuffle(shuffled.contiguous(), impl=impl)
+    with trace.span("lossy.dequantize", dev):
+        return _reconstruct(units, blob, h)
 
 
 def decode_many_lossy(blobs, *, chunk_symbols, n_chunks, mode, inner_method, impl=None):
@@ -233,6 +257,9 @@ def decode_many_lossy(blobs, *, chunk_symbols, n_chunks, mode, inner_method, imp
     _, units_pad, inner_nc = fmt.lossy_stream_geometry(nc, c, mode)
     b = blobs.shape[0]
     sec_inner = fmt.HEADER_BYTES + 8 * nc + fmt.LOSSY_META_FIXED
+    dev = blobs.device
+    trace.count("bytes_d2h", b * sec_inner)
+    trace.count("host_syncs", 1)
     heads = blobs[:, :sec_inner].cpu().numpy()
     hs = []
     for i in range(b):
@@ -246,23 +273,26 @@ def decode_many_lossy(blobs, *, chunk_symbols, n_chunks, mode, inner_method, imp
                 f"{(fmt.METHOD_LOSSY, 4, c, nc, mode, inner_method)}"
             )
         hs.append(h)
-    if inner_method == fmt.METHOD_RAW:
-        inner = blobs[:, sec_inner:]
-        n_tokens, payload_sizes = fmt.parse_tables_torch(inner, inner_nc)
-        syms = pipeline.decompress_many_chunks(
-            inner, n_tokens, payload_sizes, symbol_size=2,
-            chunk_symbols=fmt.LOSSY_INNER_CHUNK_SYMBOLS, n_chunks=inner_nc,
-            decoder="torch-parallel" if impl == "plain" else "auto",
-        )
-    else:
-        syms = torch.stack([
-            _inner_decode(blobs[i, sec_inner : sec_inner + h.inner_total], impl)
-            for i, h in enumerate(hs)
-        ])
-    shuffled = pipeline.unpack_symbols(syms.reshape(b, -1), 2).reshape(b, -1)
-    units = bitshuffle.unshuffle(shuffled[:, : 2 * units_pad].reshape(-1), impl=impl)
-    units = units.reshape(b, units_pad)
-    return torch.stack([_reconstruct(units[i], blobs[i], h) for i, h in enumerate(hs)])
+    with trace.span("lossy.inner", dev):
+        if inner_method == fmt.METHOD_RAW:
+            inner = blobs[:, sec_inner:]
+            n_tokens, payload_sizes = fmt.parse_tables_torch(inner, inner_nc)
+            syms = pipeline.decompress_many_chunks(
+                inner, n_tokens, payload_sizes, symbol_size=2,
+                chunk_symbols=fmt.LOSSY_INNER_CHUNK_SYMBOLS, n_chunks=inner_nc,
+                decoder="torch-parallel" if impl == "plain" else "auto",
+            )
+        else:
+            syms = torch.stack([
+                _inner_decode(blobs[i, sec_inner : sec_inner + h.inner_total], impl)
+                for i, h in enumerate(hs)
+            ])
+    with trace.span("lossy.unshuffle", dev):
+        shuffled = pipeline.unpack_symbols(syms.reshape(b, -1), 2).reshape(b, -1)
+        units = bitshuffle.unshuffle(shuffled[:, : 2 * units_pad].reshape(-1), impl=impl)
+        units = units.reshape(b, units_pad)
+    with trace.span("lossy.dequantize", dev):
+        return torch.stack([_reconstruct(units[i], blobs[i], h) for i, h in enumerate(hs)])
 
 
 def _reconstruct(units, blob, h: fmt.Header):
@@ -284,6 +314,8 @@ def _reconstruct(units, blob, h: fmt.Header):
     pairs = blob[h.sec_outliers : h.sec_outliers + 8 * n_out].clone().view(torch.int32)
     oidx = pairs[0::2].to(torch.int64).clamp(0, n_elems - 1)
     mask = torch.zeros(n_elems, dtype=torch.bool, device=dev)
+    trace.count("bytes_h2d", 1)  # index_put_ copies the scalar True from the host
+    trace.count("host_syncs", 1)
     mask[oidx] = True
     vbits = torch.zeros(n_elems, dtype=torch.int32, device=dev)
     vbits[oidx] = pairs[1::2]
@@ -302,5 +334,5 @@ def _reconstruct(units, blob, h: fmt.Header):
     adj = torch.where(mask, q_ref - q, 0)
     carry = adj[last.clamp(min=0)]
     q = q + torch.where(last >= 0, carry, 0)
-    x = (q.to(torch.float32) * torch.tensor(eb2, device=dev)).view(torch.int32)
+    x = (q.to(torch.float32) * _scalar(eb2, dev)).view(torch.int32)
     return torch.where(mask, vbits, x).reshape(nc, c)

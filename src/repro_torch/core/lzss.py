@@ -47,6 +47,7 @@ from repro_torch.core.pipeline import (  # noqa: F401
     tuned_config,
     unpack_symbols,
 )
+from repro_torch.runtime import trace
 
 
 def resolve_device(device=None) -> torch.device:
@@ -102,15 +103,40 @@ class BatchedCompressResult:
 
 
 def _as_bytes(data, device: torch.device) -> torch.Tensor:
-    """Any array, tensor or bytes -> flat uint8 tensor on ``device``."""
+    """Any array, tensor or bytes -> flat uint8 tensor on ``device``.
+
+    Arrays and bytes are host memory and a CPU tensor is host memory for a
+    CUDA ``device``: moving them is one blocking host-to-device copy."""
     if isinstance(data, torch.Tensor):
         t = data.detach().contiguous().reshape(-1).view(torch.uint8)
+        host = t.device.type == "cpu" and device.type != "cpu"
     else:
         if isinstance(data, (bytes, bytearray, memoryview)):
             data = np.frombuffer(data, np.uint8)
         arr = np.ascontiguousarray(data).view(np.uint8).reshape(-1)
-        t = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+        if not arr.flags.writeable:
+            arr = arr.copy()
+            trace.count("bytes_host_copy", arr.nbytes)
+        t = torch.from_numpy(arr)
+        host = True
+    if host:
+        trace.count("bytes_h2d", t.numel())
+        trace.count("host_syncs", 1)
     return t.to(device)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A device result -> numpy: one blocking device-to-host copy."""
+    trace.count("bytes_d2h", t.numel() * t.element_size())
+    trace.count("host_syncs", 1)
+    return t.cpu().numpy()
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array -> tensor on ``device``: one blocking host-to-device copy."""
+    trace.count("bytes_h2d", a.nbytes)
+    trace.count("host_syncs", 1)
+    return torch.from_numpy(a).to(device)
 
 
 def _pack_padded(raw: torch.Tensor, nc: int, cfg: LZSSConfig) -> torch.Tensor:
@@ -129,21 +155,30 @@ def _n_chunks(n_bytes: int, cfg: LZSSConfig) -> int:
 def compress(data, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> CompressResult:
     """Compress any array/bytes. Pads to whole chunks; header records truth."""
     dev = resolve_device(device)
-    raw = _as_bytes(data, dev)
-    n = raw.numel()
-    symbols = _pack_padded(raw, _n_chunks(n, config), config)
-    config = resolve_chunk_geometry(config)  # eagerly, before the kernels
-    buf, total = compress_chunks(symbols, config, n)
-    return CompressResult(data=buf[:total].cpu().numpy(), orig_bytes=n, total_bytes=total)
+    with trace.span("lzss.compress") as root:
+        with trace.span("lzss.h2d", dev):
+            raw = _as_bytes(data, dev)
+        n = raw.numel()
+        with trace.span("lzss.pack"):
+            symbols = _pack_padded(raw, _n_chunks(n, config), config)
+        config = resolve_chunk_geometry(config)  # eagerly, before the kernels
+        with trace.span("lzss.dispatch"):
+            buf, total = compress_chunks(symbols, config, n)
+        root.set(bytes=n, method=container_method(config.backend))
+        with trace.span("lzss.d2h", dev):
+            host = _to_host(buf[:total])
+    return CompressResult(data=host, orig_bytes=n, total_bytes=total)
 
 
 def _validated(blob):
     """Host-side validation of one container -> (uint8 array, header, tables)."""
     if isinstance(blob, torch.Tensor):
-        blob = blob.detach().cpu().numpy()
+        blob = blob.detach()
+        blob = _to_host(blob) if blob.device.type != "cpu" else blob.numpy()
     elif isinstance(blob, (bytes, bytearray, memoryview)):
         blob = np.frombuffer(blob, np.uint8)
     blob = np.array(blob, np.uint8)  # a writable copy for torch.from_numpy
+    trace.count("bytes_host_copy", blob.nbytes)
     h, n_tokens, payload_sizes = fmt.validate_container(blob)
     return blob, h, n_tokens, payload_sizes
 
@@ -196,27 +231,35 @@ def decompress(blob, decoder: str = "auto", device=None, chunks_per_block=None) 
     kernels run; no Hopper kernel reads it).
     """
     dev = resolve_device(device)
-    blob, h, n_tokens, payload_sizes = _validated(blob)
-    dec = _route(h.method, decoder, dev)
-    whole = getattr(get_decoder(dec, dev), "decode_blob", None)
-    if whole is not None:
-        symbols = whole(torch.from_numpy(blob).to(dev), h)
-    else:
-        symbols = decompress_chunks(
-            torch.from_numpy(blob).to(dev),
-            torch.from_numpy(n_tokens).to(dev),
-            torch.from_numpy(payload_sizes).to(dev),
-            symbol_size=h.symbol_size,
-            chunk_symbols=h.chunk_symbols,
-            n_chunks=h.n_chunks,
-            decoder=dec,
-            chunks_per_block=resolve_decode_geometry(
-                chunks_per_block, symbol_size=h.symbol_size,
-                chunk_symbols=h.chunk_symbols, decoder=dec, device=dev,
-            ),
-        )
-    out = unpack_symbols(symbols.reshape(-1), h.symbol_size)[: h.orig_bytes]
-    return out.cpu().numpy()
+    with trace.span("lzss.decompress") as root:
+        with trace.span("lzss.validate"):
+            blob, h, n_tokens, payload_sizes = _validated(blob)
+        root.set(bytes=h.orig_bytes, method=h.method)
+        dec = _route(h.method, decoder, dev)
+        whole = getattr(get_decoder(dec, dev), "decode_blob", None)
+        # the container, and for the section decoders its A/B tables
+        host = [blob] if whole is not None else [blob, n_tokens, payload_sizes]
+        with trace.span("lzss.h2d", dev):
+            moved = [_to_device(a, dev) for a in host]
+        with trace.span("lzss.decode"):
+            if whole is not None:
+                symbols = whole(moved[0], h)
+            else:
+                symbols = decompress_chunks(
+                    *moved,
+                    symbol_size=h.symbol_size,
+                    chunk_symbols=h.chunk_symbols,
+                    n_chunks=h.n_chunks,
+                    decoder=dec,
+                    chunks_per_block=resolve_decode_geometry(
+                        chunks_per_block, symbol_size=h.symbol_size,
+                        chunk_symbols=h.chunk_symbols, decoder=dec, device=dev,
+                    ),
+                )
+        with trace.span("lzss.unpack"):
+            out = unpack_symbols(symbols.reshape(-1), h.symbol_size)[: h.orig_bytes]
+        with trace.span("lzss.d2h", dev):
+            return _to_host(out)
 
 
 def compression_ratio(data, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> float:
@@ -233,16 +276,23 @@ def compress_many(arrays, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> B
     dev = resolve_device(device)
     if isinstance(arrays, (np.ndarray, torch.Tensor)) and arrays.ndim == 2:
         arrays = [arrays[i] for i in range(arrays.shape[0])]
-    raws = [_as_bytes(a, dev) for a in arrays]
-    if not raws:
-        raise ValueError("compress_many needs at least one buffer")
-    sizes = [r.numel() for r in raws]
-    nc = _n_chunks(max(sizes), config)
-    symbols = torch.stack([_pack_padded(r, nc, config) for r in raws])
-    config = resolve_chunk_geometry(config)  # eagerly, before the kernels
-    data, totals = compress_many_chunks(symbols, config, sizes)
+    with trace.span("lzss.compress_many") as root:
+        with trace.span("lzss.h2d", dev):
+            raws = [_as_bytes(a, dev) for a in arrays]
+        if not raws:
+            raise ValueError("compress_many needs at least one buffer")
+        sizes = [r.numel() for r in raws]
+        nc = _n_chunks(max(sizes), config)
+        with trace.span("lzss.pack"):
+            symbols = torch.stack([_pack_padded(r, nc, config) for r in raws])
+        config = resolve_chunk_geometry(config)  # eagerly, before the kernels
+        with trace.span("lzss.dispatch"):
+            data, totals = compress_many_chunks(symbols, config, sizes)
+        root.set(bytes=sum(sizes), method=container_method(config.backend), buffers=len(sizes))
+        with trace.span("lzss.d2h", dev):
+            host = _to_host(data)
     return BatchedCompressResult(
-        data=data.cpu().numpy(),
+        data=host,
         orig_bytes=np.asarray(sizes, np.int64),
         total_bytes=np.asarray(totals, np.int64),
         config=config,
@@ -274,78 +324,93 @@ def decompress_many(batch, decoder: str = "auto", device=None, mesh=None, batch_
         blobs = list(batch)
     if not blobs:
         raise ValueError("decompress_many needs at least one container")
-    checked = []
-    for i, b in enumerate(blobs):
-        try:
-            checked.append(_validated(b))
-        except ValueError as e:
-            raise ValueError(f"buffer {i}: {e}") from None
-    h0 = checked[0][1]
-    for i, (_, h, _, _) in enumerate(checked[1:], start=1):
-        if (h.symbol_size, h.chunk_symbols, h.n_chunks, h.method) != (
-            h0.symbol_size, h0.chunk_symbols, h0.n_chunks, h0.method
-        ):
-            raise ValueError(
-                f"decompress_many requires a homogeneous batch geometry; "
-                f"buffer 0 has (symbol_size={h0.symbol_size}, "
-                f"chunk_symbols={h0.chunk_symbols}, n_chunks={h0.n_chunks}, "
-                f"method={h0.method}) "
-                f"but buffer {i} has (symbol_size={h.symbol_size}, "
-                f"chunk_symbols={h.chunk_symbols}, n_chunks={h.n_chunks}, "
-                f"method={h.method}); "
-                f"decompress mismatched containers individually"
-            )
-    if h0.method == fmt.METHOD_LOSSY:
-        sp = get_decoder("lossy-fz", dev).static_params
+    with trace.span("lzss.decompress_many") as root:
+        checked = []
+        with trace.span("lzss.validate"):
+            for i, b in enumerate(blobs):
+                try:
+                    checked.append(_validated(b))
+                except ValueError as e:
+                    raise ValueError(f"buffer {i}: {e}") from None
+        h0 = checked[0][1]
+        root.set(bytes=sum(c[1].orig_bytes for c in checked), method=h0.method,
+                 buffers=len(checked))
         for i, (_, h, _, _) in enumerate(checked[1:], start=1):
-            if sp(h) != sp(h0):
+            if (h.symbol_size, h.chunk_symbols, h.n_chunks, h.method) != (
+                h0.symbol_size, h0.chunk_symbols, h0.n_chunks, h0.method
+            ):
                 raise ValueError(
-                    f"decompress_many requires a homogeneous lossy batch; "
-                    f"buffer 0 has (mode, inner_method)={sp(h0)} "
-                    f"but buffer {i} has {sp(h)}; "
+                    f"decompress_many requires a homogeneous batch geometry; "
+                    f"buffer 0 has (symbol_size={h0.symbol_size}, "
+                    f"chunk_symbols={h0.chunk_symbols}, n_chunks={h0.n_chunks}, "
+                    f"method={h0.method}) "
+                    f"but buffer {i} has (symbol_size={h.symbol_size}, "
+                    f"chunk_symbols={h.chunk_symbols}, n_chunks={h.n_chunks}, "
+                    f"method={h.method}); "
                     f"decompress mismatched containers individually"
                 )
-    if mesh is not None and decoder not in ("auto", "sharded"):
-        raise ValueError(
-            f"mesh= shards the dispatch through the 'sharded' decoder; "
-            f"it cannot be combined with decoder={decoder!r}"
-        )
-    dec = _route(h0.method, "auto" if mesh is not None else decoder, dev, batch=True)
-    whole = getattr(get_decoder(dec, dev), "decode_blob", None)
-    if whole is not None:
-        # container by container; with a mesh, each row on its shard's device
-        from repro_torch.sharding import batch as shbatch  # lazy: avoid a cycle
+        if h0.method == fmt.METHOD_LOSSY:
+            sp = get_decoder("lossy-fz", dev).static_params
+            for i, (_, h, _, _) in enumerate(checked[1:], start=1):
+                if sp(h) != sp(h0):
+                    raise ValueError(
+                        f"decompress_many requires a homogeneous lossy batch; "
+                        f"buffer 0 has (mode, inner_method)={sp(h0)} "
+                        f"but buffer {i} has {sp(h)}; "
+                        f"decompress mismatched containers individually"
+                    )
+        if mesh is not None and decoder not in ("auto", "sharded"):
+            raise ValueError(
+                f"mesh= shards the dispatch through the 'sharded' decoder; "
+                f"it cannot be combined with decoder={decoder!r}"
+            )
+        dec = _route(h0.method, "auto" if mesh is not None else decoder, dev, batch=True)
+        whole = getattr(get_decoder(dec, dev), "decode_blob", None)
+        if whole is not None:
+            # container by container; with a mesh, each row on its shard's device
+            from repro_torch.sharding import batch as shbatch  # lazy: avoid a cycle
 
-        def one(row, d):
-            b, h, _, _ = row
-            sym = whole(torch.from_numpy(b).to(d), h).reshape(-1)
-            return unpack_symbols(sym, h.symbol_size)[: h.orig_bytes].cpu().numpy()
+            def one(row, d):
+                b, h, _, _ = row
+                with trace.span("lzss.h2d", d):
+                    moved = _to_device(b, d)
+                with trace.span("lzss.decode"):
+                    sym = whole(moved, h).reshape(-1)
+                with trace.span("lzss.unpack"):
+                    out = unpack_symbols(sym, h.symbol_size)[: h.orig_bytes]
+                with trace.span("lzss.d2h", d):
+                    return _to_host(out)
 
-        return shbatch.ShardedBatchRunner(mesh, batch_axis).map_rows(one, checked, dev)
-    if mesh is not None:
-        dec = "sharded"
-    width = max(c[0].size for c in checked)
-    stacked = np.zeros((len(checked), width), np.uint8)
-    for i, c in enumerate(checked):
-        stacked[i, : c[0].size] = c[0]
-    symbols = decompress_many_chunks(
-        torch.from_numpy(stacked).to(dev),
-        torch.from_numpy(np.stack([c[2] for c in checked])).to(dev),
-        torch.from_numpy(np.stack([c[3] for c in checked])).to(dev),
-        symbol_size=h0.symbol_size,
-        chunk_symbols=h0.chunk_symbols,
-        n_chunks=h0.n_chunks,
-        decoder=dec,
-        chunks_per_block=resolve_decode_geometry(
-            chunks_per_block, symbol_size=h0.symbol_size, chunk_symbols=h0.chunk_symbols,
-            decoder=dec, device=dev,
-        ),
-        mesh=mesh,
-        batch_axis=batch_axis,
-    )
-    s = h0.symbol_size
-    out = []
-    for i, (_, h, _, _) in enumerate(checked):
-        out.append(unpack_symbols(symbols[i].reshape(-1), s)[: h.orig_bytes].cpu().numpy())
-    return out
-
+            return shbatch.ShardedBatchRunner(mesh, batch_axis).map_rows(one, checked, dev)
+        if mesh is not None:
+            dec = "sharded"
+        with trace.span("lzss.h2d", dev):
+            width = max(c[0].size for c in checked)
+            stacked = np.zeros((len(checked), width), np.uint8)
+            for i, c in enumerate(checked):
+                stacked[i, : c[0].size] = c[0]
+            trace.count("bytes_host_copy", sum(c[0].size for c in checked))
+            moved = [_to_device(a, dev) for a in (
+                stacked, np.stack([c[2] for c in checked]), np.stack([c[3] for c in checked]))]
+        with trace.span("lzss.decode"):
+            symbols = decompress_many_chunks(
+                *moved,
+                symbol_size=h0.symbol_size,
+                chunk_symbols=h0.chunk_symbols,
+                n_chunks=h0.n_chunks,
+                decoder=dec,
+                chunks_per_block=resolve_decode_geometry(
+                    chunks_per_block, symbol_size=h0.symbol_size, chunk_symbols=h0.chunk_symbols,
+                    decoder=dec, device=dev,
+                ),
+                mesh=mesh,
+                batch_axis=batch_axis,
+            )
+        s = h0.symbol_size
+        out = []
+        for i, (_, h, _, _) in enumerate(checked):
+            with trace.span("lzss.unpack"):
+                row = unpack_symbols(symbols[i].reshape(-1), s)[: h.orig_bytes]
+            with trace.span("lzss.d2h", dev):
+                out.append(_to_host(row))
+        return out

@@ -70,6 +70,7 @@ import torch
 
 from repro_torch.core import autotune, decode as decode_mod
 from repro_torch.core import deflate, encode, format as fmt, match
+from repro_torch.runtime import trace
 
 # --------------------------------------------------------------- config
 
@@ -391,6 +392,14 @@ class FusedBackend:
         return dict(out, use_match=out["emitted"] & (out["lengths"] >= cfg.min_match))
 
 
+def _read_totals(totals: torch.Tensor) -> list:
+    """The one device-to-host read of the (B, 2) section totals."""
+    with trace.span("pipeline.totals"):
+        trace.count("bytes_d2h", totals.numel() * totals.element_size())
+        trace.count("host_syncs", 1)
+        return totals.cpu().tolist()
+
+
 class FusedDeflateBackend(FusedBackend):
     """The split CUDA path: Kernel I, then Kernel II and Kernel III."""
 
@@ -409,7 +418,7 @@ class FusedDeflateBackend(FusedBackend):
             flag_off, pay_off, symbol_size=s, min_match=cfg.min_match, cap=cap,
             sec_flags=sec_flags,
         )
-        totals = totals.cpu().tolist()  # the one device-to-host read
+        totals = _read_totals(totals)
         return _finalize_container(
             blobs, cfg, orig_bytes, nc=nc, c=c, n_tokens=k1["n_tokens"],
             payload_sizes=k1["payload_sizes"],
@@ -435,7 +444,7 @@ class FusedMonoBackend(FusedBackend):
             symbols, window=cfg.window, min_match=cfg.min_match, symbol_size=s,
             cap=fmt.max_compressed_bytes(nc * c * s, s, c), sec_flags=fmt.HEADER_BYTES + 8 * nc,
         )
-        totals = totals.cpu().tolist()  # the one device-to-host read
+        totals = _read_totals(totals)
         return _finalize_container(
             blobs, cfg, orig_bytes, nc=nc, c=c, n_tokens=n_tokens, payload_sizes=payload_sizes,
             flag_totals=[t[0] for t in totals], pay_totals=[t[1] for t in totals],
@@ -837,6 +846,8 @@ def emit_torch(symbols, k1, cfg, orig_bytes):
             out, sec_flags + flag_total, payload[rows], flat["payload_sizes"][rows], pay_off
         )
         blobs[r] = out.to(torch.uint8)
+        trace.count("bytes_d2h", 2 * flag_total.element_size())  # two blocking reads
+        trace.count("host_syncs", 2)
         flag_totals.append(int(flag_total))
         pay_totals.append(int(pay_total))
     return _finalize_container(
