@@ -125,11 +125,32 @@ def _as_bytes(data, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A device result -> numpy: one blocking device-to-host copy."""
+def _pinned(shape) -> torch.Tensor:
+    """A page-locked uint8 block from torch's caching host allocator.
+
+    The block goes back to the allocator's cache when the tensor, and any
+    array of its ``.numpy()``, is dropped; a later request of the same
+    rounded size takes it again with its pages already touched, so a copy
+    into or out of it pays no page faults and no staging."""
+    before = torch.cuda.host_memory_stats()["num_host_alloc"] if trace.enabled() else None
+    t = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    trace.count("pinned_bytes", t.numel())
+    if before is not None:
+        trace.count("pinned_allocs", torch.cuda.host_memory_stats()["num_host_alloc"] - before)
+    return t
+
+
+def _to_host(t: torch.Tensor, pinned: bool = False) -> np.ndarray:
+    """A device result -> numpy: one blocking device-to-host copy, into a
+    fresh pageable buffer or, with ``pinned``, into a block of ``_pinned``
+    (``t`` is then uint8) that the returned array holds."""
     trace.count("bytes_d2h", t.numel() * t.element_size())
     trace.count("host_syncs", 1)
-    return t.cpu().numpy()
+    if not pinned:
+        return t.cpu().numpy()
+    host = _pinned(t.shape)
+    host.copy_(t)
+    return host.numpy()
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -170,14 +191,23 @@ def compress(data, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> Compress
     return CompressResult(data=host, orig_bytes=n, total_bytes=total)
 
 
-def _validated(blob):
-    """Host-side validation of one container -> (uint8 array, header, tables)."""
+def _validated(blob, pinned: bool = False):
+    """Host-side validation of one container -> (uint8 array, header, tables).
+
+    The container is first copied once in host memory, writable for
+    ``torch.from_numpy``: into a fresh array, or with ``pinned`` into a
+    block of ``_pinned``, from which its copy to the card needs no staging."""
     if isinstance(blob, torch.Tensor):
         blob = blob.detach()
         blob = _to_host(blob) if blob.device.type != "cpu" else blob.numpy()
     elif isinstance(blob, (bytes, bytearray, memoryview)):
         blob = np.frombuffer(blob, np.uint8)
-    blob = np.array(blob, np.uint8)  # a writable copy for torch.from_numpy
+    if pinned:
+        src = np.asarray(blob, np.uint8)
+        blob = _pinned(src.shape).numpy()
+        np.copyto(blob, src)
+    else:
+        blob = np.array(blob, np.uint8)  # a writable copy for torch.from_numpy
     trace.count("bytes_host_copy", blob.nbytes)
     h, n_tokens, payload_sizes = fmt.validate_container(blob)
     return blob, h, n_tokens, payload_sizes
@@ -229,11 +259,18 @@ def decompress(blob, decoder: str = "auto", device=None, chunks_per_block=None) 
     ``chunks_per_block`` pins the decode geometry (format-invisible; ``None``
     = ``pipeline.resolve_decode_geometry``, resolved here, before the
     kernels run; no Hopper kernel reads it).
+
+    On a CUDA device the container's host copy and the result live in
+    page-locked host memory from torch's caching host allocator, reused
+    across calls.  The returned array holds its block, which goes back to
+    that cache when the array is dropped; a caller who keeps many results
+    can take a pageable copy with ``np.array(out)``.
     """
     dev = resolve_device(device)
+    pinned = dev.type == "cuda"
     with trace.span("lzss.decompress") as root:
         with trace.span("lzss.validate"):
-            blob, h, n_tokens, payload_sizes = _validated(blob)
+            blob, h, n_tokens, payload_sizes = _validated(blob, pinned)
         root.set(bytes=h.orig_bytes, method=h.method)
         dec = _route(h.method, decoder, dev)
         whole = getattr(get_decoder(dec, dev), "decode_blob", None)
@@ -259,7 +296,7 @@ def decompress(blob, decoder: str = "auto", device=None, chunks_per_block=None) 
         with trace.span("lzss.unpack"):
             out = unpack_symbols(symbols.reshape(-1), h.symbol_size)[: h.orig_bytes]
         with trace.span("lzss.d2h", dev):
-            return _to_host(out)
+            return _to_host(out, pinned)
 
 
 def compression_ratio(data, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> float:

@@ -41,8 +41,13 @@ same path counts on the card:
   ``bytes_host_copy``  whole-buffer copies the program makes in host memory
   ``host_syncs``       each place the host waits for the card's stream: a
                        card -> host read (``.cpu()``, ``int(tensor)``,
-                       ``torch.nonzero``'s size) or a host -> card copy
-                       from pageable memory
+                       ``torch.nonzero``'s size) or a blocking host -> card
+                       copy
+  ``pinned_bytes``     bytes a site stages through page-locked blocks of
+                       torch's caching host allocator
+  ``pinned_allocs``    blocks that allocator had to allocate for them (the
+                       rise of ``torch.cuda.host_memory_stats()``'s
+                       ``num_host_alloc``; 0 where its cache held one)
 
 With tracing off, ``span`` returns one shared no-op context and ``count``
 returns at once: the cost is a flag check a site.
@@ -91,7 +96,8 @@ SPANS = (
     "entropy.gap_decode",
     "entropy.gather",
 )
-COUNTERS = ("bytes_h2d", "bytes_d2h", "bytes_host_copy", "host_syncs", "dropped")
+COUNTERS = ("bytes_h2d", "bytes_d2h", "bytes_host_copy", "host_syncs", "pinned_bytes",
+            "pinned_allocs", "dropped")
 # timed on the stream as well as on the host clock: the container stages
 # and the host API's copies
 DEVICE_STAGES = frozenset(

@@ -1,0 +1,253 @@
+"""``lzss.decompress``'s host staging: on a CUDA device the container's host
+copy and the result live in page-locked blocks of torch's caching host
+allocator, on the CPU in pageable memory as before.
+
+The CPU cases hold the CPU path to what it returned before (the bytes, a
+writable uint8 array of ``orig_bytes``, nothing staged through page-locked
+memory), a kept result to its bytes over later calls, a corrupt container
+to its ``ValueError``, and the two staging sites to their counts on a
+pageable stand-in for the allocator.  The ``gpu`` cases run on the card:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_pinned.py
+
+This file imports no JAX.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import format as fmt, lzss, pipeline
+from repro_torch.runtime import trace
+
+N = 1 << 14  # bytes of a field
+
+CONFIGS = {
+    0: lzss.LZSSConfig(symbol_size=2),
+    1: lzss.LZSSConfig(symbol_size=2, backend="deflate-full"),
+    2: lzss.LZSSConfig(symbol_size=4, backend="lossy-fz", lossy_eb=1e-3,
+                       lossy_inner="deflate-full"),
+}
+# raw LZSS at S=4 on a field whose size is not a multiple of S
+ODD = lzss.LZSSConfig(symbol_size=4)
+
+
+def _field(m, n=N, seed=7):
+    rng = np.random.default_rng(seed)
+    if m == 2:
+        x = np.cumsum(rng.normal(size=n // 4)).astype(np.float32)
+        x[5] = np.nan  # one outlier at least
+        return x
+    return np.repeat(rng.integers(0, 6, n), rng.integers(1, 9, n)).astype(np.uint8)[:n]
+
+
+def _blob(m, device="cpu", n=N, seed=7):
+    cfg = ODD if m == "odd" else CONFIGS[m]
+    field = _field(0 if m == "odd" else m, n, seed)
+    return field, lzss.compress(field, cfg, device=device).data
+
+
+@pytest.fixture
+def tracing():
+    trace.reset()
+    trace.enable()
+    yield trace
+    trace.disable()
+    trace.reset()
+
+
+@pytest.fixture(params=["cpu-registry", "card-registry"])
+def registry(request, monkeypatch):
+    """The CPU's default decoders, or the card's (``fused-mono``) as plain
+    versions: ``decompress`` takes its whole-container and its section
+    routes on both."""
+    if request.param == "card-registry":
+        monkeypatch.setattr(pipeline, "default_backend", lambda device: "fused-mono")
+        monkeypatch.setattr(pipeline, "default_decoder", lambda device: "fused-mono")
+    return request.param
+
+
+def _check_lossy(out, field, eb):
+    y = out.view(np.float32)
+    ok = ~np.isnan(field)
+    assert np.isnan(y[~ok]).all()
+    assert np.abs(y[ok].astype(np.float64) - field[ok]).max() <= eb
+
+
+# ------------------------------------------------------------ on the CPU
+
+
+@pytest.mark.parametrize("m", [0, 1, 2])
+def test_cpu_decompress_returns_what_it_did_and_stages_nothing(tracing, registry, m):
+    field, blob = _blob(m)
+    tracing.reset()
+    out = lzss.decompress(blob, device="cpu")
+    c = tracing.snapshot()["counters"]
+    h = fmt.parse_header(blob)
+    assert isinstance(out, np.ndarray) and out.dtype == np.uint8 and out.ndim == 1
+    assert out.size == h.orig_bytes == field.nbytes and out.flags.writeable
+    assert c["pinned_bytes"] == c["pinned_allocs"] == 0
+    assert c["bytes_host_copy"] == blob.size  # _validated's one writable copy
+    # the batched entry point keeps its pageable copies: the same bytes
+    assert np.array_equal(out, lzss.decompress_many([blob], device="cpu")[0])
+    if m == 2:
+        _check_lossy(out, field, 1e-3)
+    else:
+        assert np.array_equal(out, field)
+
+
+def test_cpu_kept_result_survives_later_calls():
+    field, blob = _blob(0)
+    kept = lzss.decompress(blob, device="cpu")
+    before = kept.copy()
+    others = [_blob(m, seed=11 + m)[1] for m in (0, 1, 2, 0, 1)]
+    for other in others:
+        lzss.decompress(other, device="cpu")
+    assert np.array_equal(kept, before) and np.array_equal(kept, field)
+
+
+def _truncated_header(blob):
+    return blob[: fmt.HEADER_BYTES - 1]
+
+
+def _bad_magic(blob):
+    b = blob.copy()
+    b[0] ^= 0xFF
+    return b
+
+
+def _bad_symbol_size(blob):
+    b = blob.copy()
+    b[5] = 3
+    return b
+
+
+def _truncated_body(blob):
+    return blob[:-1]
+
+
+CORRUPTIONS = {
+    "truncated-header": (_truncated_header, "truncated container"),
+    "bad-magic": (_bad_magic, "bad magic"),
+    "bad-symbol-size": (_bad_symbol_size, "symbol_size 3"),
+    "truncated-body": (_truncated_body, "truncated container: header declares"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(CORRUPTIONS))
+def test_cpu_corrupt_container_raises_naming_the_check(tracing, kind):
+    corrupt, words = CORRUPTIONS[kind]
+    field, blob = _blob(0)
+    tracing.reset()
+    with pytest.raises(ValueError, match=words):
+        lzss.decompress(corrupt(blob), device="cpu")
+    assert tracing.snapshot()["counters"]["bytes_h2d"] == 0  # nothing decoded
+    assert np.array_equal(lzss.decompress(blob, device="cpu"), field)
+
+
+@pytest.fixture
+def stand_in_allocator(monkeypatch):
+    """A pageable stand-in for torch's caching host allocator, so that the
+    page-locked staging sites run on the CPU: each block asked for counts
+    as one host allocation."""
+    stats = {"num_host_alloc": 0}
+    real_empty = torch.empty
+
+    def empty(*args, pin_memory=False, **kw):
+        stats["num_host_alloc"] += bool(pin_memory)
+        return real_empty(*args, **kw)
+
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "host_memory_stats", lambda: dict(stats))
+    return stats
+
+
+@pytest.mark.parametrize("m", [0, 1, 2])
+def test_staging_sites_count_on_a_stand_in_block(tracing, stand_in_allocator, m):
+    field, blob = _blob(m)
+    tracing.reset()
+    host, h, _, _ = lzss._validated(blob, pinned=True)
+    assert np.array_equal(host, blob) and host.flags.writeable
+    assert not np.shares_memory(host, blob)
+    out = lzss._to_host(torch.from_numpy(host.copy()), pinned=True)
+    assert np.array_equal(out, blob) and out.dtype == np.uint8
+    c = tracing.snapshot()["counters"]
+    assert c["pinned_bytes"] == 2 * blob.size and c["pinned_allocs"] == 2
+    assert c["bytes_host_copy"] == blob.size and c["bytes_d2h"] == blob.size
+    assert c["host_syncs"] == 1
+    assert h.orig_bytes == field.nbytes
+
+
+# ------------------------------------------------------------ on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the H100; see README)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [0, 1, 2, "odd"])
+def test_card_result_is_page_locked_and_equals_the_cpu_path(cuda, m):
+    n = N + 3 if m == "odd" else N
+    field, blob = _blob(m, device=cuda, n=n)
+    assert np.array_equal(blob, _blob(m, n=n)[1])  # the card's container is the CPU's
+    out = lzss.decompress(blob)
+    assert torch.from_numpy(out).is_pinned()
+    assert out.dtype == np.uint8 and out.size == fmt.parse_header(blob).orig_bytes
+    assert out.flags.writeable
+    assert np.array_equal(out, lzss.decompress(blob, device="cpu"))
+    if m != 2:
+        assert np.array_equal(out, field)
+
+
+@pytest.mark.gpu
+def test_card_kept_result_is_not_overwritten_by_later_calls(cuda):
+    field, blob = _blob(0, device=cuda)
+    kept = lzss.decompress(blob)
+    others = [_blob(m, device=cuda, seed=11 + m)[1] for m in (0, 1, 2)]
+    for i in range(20):
+        lzss.decompress(others[i % 3])
+    assert np.array_equal(kept, field)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [0, 1, 2])
+def test_card_steady_state_allocates_no_block(cuda, m):
+    _, blob = _blob(m, device=cuda)
+    for _ in range(3):  # warm: the kernels, the allocator's blocks
+        lzss.decompress(blob)
+    torch.cuda.synchronize()
+    trace.reset()
+    trace.enable()
+    try:
+        for _ in range(10):
+            out = lzss.decompress(blob)
+            del out
+        c = trace.snapshot()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    orig = fmt.parse_header(blob).orig_bytes
+    assert c["pinned_allocs"] == 0
+    assert c["pinned_bytes"] == 10 * (blob.size + orig)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(CORRUPTIONS))
+def test_card_corrupt_container_raises_before_any_h2d(cuda, kind):
+    corrupt, words = CORRUPTIONS[kind]
+    field, blob = _blob(0, device=cuda)
+    trace.reset()
+    trace.enable()
+    try:
+        with pytest.raises(ValueError, match=words):
+            lzss.decompress(corrupt(blob))
+        c = trace.snapshot()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert c["bytes_h2d"] == 0 and c["host_syncs"] == 0
+    assert np.array_equal(lzss.decompress(blob), field)
