@@ -7,7 +7,8 @@ item up, and then calls the program in a closed loop with one client for
 host clock from its start to the return of the API, which hands its result
 to the host.  One kept result an item, drawn from the seed, is checked
 after the window against the plain reference (``bench/reference/``).
-With ``trace`` the window runs under ``torch.profiler`` and the per-layer
+With ``trace`` the window runs under ``torch.profiler``, ends after the
+traffic's ``traced_cycles`` cycles if that comes first, and the per-layer
 readers (``bench/metrics/``) read the device trace; without it the
 end-to-end readers (``bench/e2e/``) read the calls.
 """
@@ -123,16 +124,18 @@ def _family(metric_name: str) -> tuple:
 
 
 def run_cell(man: dict, cell_name: str, *, seed: int, seconds: float, trace: bool,
-             device: str = "cuda", control: bool = False, started=None, config=None):
+             device: str = "cuda", control: bool = False, started=None, config=None,
+             traffic=None):
     """One run; returns ``(result dict, checks)``, ``checks`` a list of
     ``(name, value, limit)``.  ``started`` is the process's start on the
     ``time.perf_counter`` clock (set-up is measured from it); ``config``
-    replaces the cell's configuration (the tests' small sizes)."""
+    and ``traffic`` replace the cell's configuration and traffic mix (the
+    tests' small sizes)."""
     started = time.perf_counter() if started is None else started
     cell = manifest.cell(man, cell_name)
     cfg = config if config is not None else manifest.config(man, cell["config"])
-    run = Run(manifest=man, cell=cell, config=cfg, traffic=manifest.traffic(cell["traffic"]),
-              device=device)
+    traffic = traffic if traffic is not None else manifest.traffic(cell["traffic"])
+    run = Run(manifest=man, cell=cell, config=cfg, traffic=traffic, device=device)
     if (run.traffic.get("loop"), run.traffic.get("clients")) != ("closed", 1):
         raise ValueError("the harness drives one client in a closed loop; "
                          f"traffic {cell['traffic']!r} asks for another")
@@ -167,6 +170,9 @@ def run_cell(man: dict, cell_name: str, *, seed: int, seconds: float, trace: boo
     # ---- the window: one client in a closed loop, cycling through the items
     rng = random.Random(seed)
     kept, seen = {}, [0] * n_items
+    # the profiler's events, and the time to read them, grow with the calls it
+    # sees: a traffic mix may end a traced window after ``traced_cycles``
+    max_calls = run.traffic.get("traced_cycles", math.inf) * n_items if trace else math.inf
     prof = devtrace.profiler(device) if trace else contextlib.nullcontext()
     with prof:
         for r in hooks:
@@ -177,7 +183,7 @@ def run_cell(man: dict, cell_name: str, *, seed: int, seconds: float, trace: boo
         k = 0
         while True:
             t0 = time.perf_counter()
-            if t0 >= t_end:
+            if t0 >= t_end or k >= max_calls:
                 break
             item = k % n_items
             k += 1

@@ -1,23 +1,35 @@
 """Kernels layer: the least time the chip needs for the window's calls
 (``bench/roofline.py``: the field and the container each moved once and,
 in a write whose configuration names ``window_walk_compares``, the
-compares of a greedy window walk on each call's field) over the device
-time of every kernel in the window, the program's and PyTorch's alike, in
-percent."""
+compares of a greedy window walk on the bytes each call compresses) over
+the device time of every kernel in the window, the program's and
+PyTorch's alike, in percent.
+
+An item's bytes are the flat slices its op says it compresses
+(``op.item_fields(i)``, each a buffer of its own chunks), by default the
+item's row of the fields."""
+
+import torch
 
 from bench import roofline
 
 
+def item_fields(run, i) -> list:
+    hook = getattr(run.op, "item_fields", None)
+    return hook(i) if hook is not None else [run.program_fields[i]]
+
+
 def prepare(run):
-    """Count each field's compares once, in the traced run's set-up."""
+    """Count each item's compares once, in the traced run's set-up."""
     if run.config.get("roofline_ops") != "window_walk_compares" or run.direction != "write":
         run.prepared[__name__] = None
         return
     codec = run.config["codec"]
+    s, c = codec["symbol_size"], codec["chunk_symbols"]
     run.prepared[__name__] = [
         roofline.window_walk_compares(
-            roofline.symbols(f, codec["symbol_size"], codec["chunk_symbols"]), codec["window"])
-        for f in run.program_fields
+            torch.cat([roofline.symbols(f, s, c) for f in item_fields(run, i)]), codec["window"])
+        for i in range(len(run.op))
     ]
 
 

@@ -14,7 +14,9 @@ import torch
 from bench.ops import _codec
 from bench.reference import gplz
 
+ENTRY = "compress"
 LIMITS = {"bad_containers": 0}
+TABLES = 4 * (256 + 256 + 16 + 16 + 16 + 256)  # entropy.canonical_tables: six int32 tables
 
 
 class Op:
@@ -61,3 +63,25 @@ class Op:
                 y = torch.zeros(0, dtype=torch.uint8, device=run.device)
             rows.append(run.guarantee.compare(run.fields[i], y, run.config["guarantee"]))
         return rows
+
+    def traced_counts(self, call) -> tuple:
+        """(bytes copied, host syncs) that the program's tracer counts for one
+        call on the card's registry: the container's D2H and every small
+        copy's site, as ``tests/test_torch_trace.py`` counts them a path."""
+        from repro_torch.core import format as fmt
+
+        codec = self.run.config["codec"]
+        backend = codec.get("backend", "auto")
+        totals = 8  # pipeline.totals: one row of two int32
+        if backend == "deflate-full":  # + entropy.lz's header, the histograms, two bit counts
+            d2h = totals + fmt.HEADER_BYTES + 2 * 256 * 4 + 2 * 8
+            h2d = fmt.HEADER_BYTES + 2 * TABLES + fmt.HEADER_BYTES + fmt.ENTROPY_META_FIXED
+            return call.stored_bytes + d2h + h2d, 21
+        if backend == "lossy-fz" and codec.get("lossy_inner") == "deflate-full":
+            d2h = totals + fmt.HEADER_BYTES + 2 * 256 * 4 + 2 * 8
+            h2d = (2 * 4 + fmt.HEADER_BYTES + 2 * TABLES + fmt.HEADER_BYTES
+                   + fmt.ENTROPY_META_FIXED + fmt.HEADER_BYTES + fmt.LOSSY_META_FIXED)
+            return call.stored_bytes + d2h + h2d, 26
+        if backend in ("auto", "fused-mono"):
+            return call.stored_bytes + totals + fmt.HEADER_BYTES, 3
+        raise NotImplementedError(f"no traced counts for backend {backend!r}")

@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 
 from bench.ops import _codec
+from bench.ops.compress import TABLES
 
+ENTRY = "decompress"
 LIMITS = {}
 
 
@@ -53,3 +55,26 @@ class Op:
                                   run.config["guarantee"])
             for i, out in kept.items()
         ]
+
+    def traced_counts(self, call) -> tuple:
+        """(bytes copied, host syncs) that the program's tracer counts for one
+        call on the card's registry: the container's H2D and ``_validated``'s
+        host copy of it, the bytes' D2H, and every small copy's site, as
+        ``tests/test_torch_trace.py`` counts them a path."""
+        from repro_torch.core import format as fmt
+
+        codec = self.run.config["codec"]
+        backend = codec.get("backend", "auto")
+        nc = -(-call.field_bytes // (codec["symbol_size"] * codec["chunk_symbols"]))
+        moved = 2 * call.stored_bytes + call.field_bytes
+        if backend == "deflate-full":  # the codes' tables; the codebooks
+            return moved + 2 * TABLES + 256, 15
+        if backend == "lossy-fz" and codec.get("lossy_inner") == "deflate-full":
+            _, _, inner_nc = fmt.lossy_stream_geometry(nc, codec["chunk_symbols"],
+                                                       fmt.LOSSY_MODE_QUANT)
+            h2d = 2 * TABLES + 2 * 4 + 1  # tables, two f32 scalars, the outlier mask's True
+            d2h = 256 + 4 + fmt.HEADER_BYTES + 8 * inner_nc + fmt.ENTROPY_META_FIXED
+            return moved + h2d + d2h, 20
+        if backend in ("auto", "fused-mono"):
+            return moved + 8 * nc, 4  # the A/B tables beside the container
+        raise NotImplementedError(f"no traced counts for backend {backend!r}")

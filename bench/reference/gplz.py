@@ -326,3 +326,52 @@ def decode(blob, device="cpu") -> torch.Tensor:
         out = _symbols_to_bytes(sym, h["S"])
     _need(end == blob.size, f"container is {blob.size} bytes, its header describes {end}")
     return out[: h["orig"]]
+
+
+def decode_many(blobs, device="cpu") -> list:
+    """``decode`` of each container of ``blobs``: a list with, for each, its
+    bytes or the ``ContainerError`` that refuses it.  The method-0
+    containers of one geometry decode together, their chunks in one pass of
+    ``decode_sections``, after each container's own sizes are checked; where
+    that pass refuses, each container of the group decodes alone."""
+    out = [None] * len(blobs)
+    groups = {}
+    for i, b in enumerate(blobs):
+        b = np.ascontiguousarray(np.asarray(b, np.uint8).reshape(-1))
+        try:
+            h = parse_header(b)
+            if h["method"] != 0:
+                out[i] = decode(b, device)
+                continue
+            t = b[HEADER_BYTES : HEADER_BYTES + 8 * h["nc"]].view("<u4").astype(np.int64)
+            _need(int(((t[: h["nc"]] + 7) // 8).sum()) == h["flags"], "flag section size")
+            _need(int(t[h["nc"] :].sum()) == h["payload"], "payload section size")
+            end = h["sec_meta"] + h["flags"] + h["payload"]
+            _need(end == b.size, f"container is {b.size} bytes, its header describes {end}")
+        except ContainerError as e:
+            out[i] = e
+            continue
+        groups.setdefault((h["S"], h["C"], h["W"]), []).append((i, b, h, t))
+    for (S, C, W), members in groups.items():
+        cat = np.concatenate
+        flags = cat([b[h["sec_meta"] : h["sec_meta"] + h["flags"]] for _, b, h, _ in members])
+        payload = cat([b[h["sec_meta"] + h["flags"] :] for _, b, h, _ in members])
+        n_tokens = cat([t[: h["nc"]] for _, _, h, t in members])
+        pay_sizes = cat([t[h["nc"] :] for _, _, h, t in members])
+        to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        try:
+            sym = decode_sections(to(flags), to(payload), to(n_tokens), to(pay_sizes),
+                                  S=S, C=C, W=W)
+        except ContainerError:
+            for i, b, _, _ in members:
+                try:
+                    out[i] = decode(b, device)
+                except ContainerError as e:
+                    out[i] = e
+            continue
+        at = 0
+        for i, _, h, _ in members:
+            n = h["nc"] * C
+            out[i] = _symbols_to_bytes(sym[at : at + n], S)[: h["orig"]]
+            at += n
+    return out

@@ -5,8 +5,10 @@ from files alone.  The card's runs are in ``test_perf_card.py``."""
 from __future__ import annotations
 
 import ast
+import dataclasses
 import io
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -17,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from _perf_common import CELLS, ROOT, man, small_config  # noqa: F401
+from _perf_common import CELLS, ROOT, man, small  # noqa: F401
 from bench import harness
+from bench.reference import gplz
 
 BENCH = ROOT / "bench"
 SEED = 3_000_000_017
@@ -27,8 +30,7 @@ SEED = 3_000_000_017
 def _run(man, cell, **kw):
     kw.setdefault("seconds", 0.3)
     kw.setdefault("trace", False)
-    return harness.run_cell(man, cell, seed=SEED, device="cpu",
-                            config=small_config(man, cell), **kw)
+    return harness.run_cell(man, cell, seed=SEED, device="cpu", **small(man, cell), **kw)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -49,38 +51,68 @@ def test_the_control_is_not_correct(man, cell):
     assert any(v > lim for _, v, lim in checks)
 
 
-def _flip_container(monkeypatch):
-    from repro_torch.core import lzss
-
-    real = lzss.compress
-
-    def compress(*a, **k):  # a token altered where it is produced
-        r = real(*a, **k)
-        data = r.data.copy()
+def _flip_container(r):
+    """One live byte of one container altered: a token altered where it is
+    produced (a ``CompressResult``'s third byte from its end, or the middle
+    container of a batch's first literal, since a batch's containers may end
+    in tokens of their last chunk's padding)."""
+    data = r.data.copy()
+    if data.ndim == 1:
         data[data.size - 3] ^= 0x21
-        return type(r)(data=data, orig_bytes=r.orig_bytes, total_bytes=r.total_bytes)
+    else:
+        b = len(r) // 2
+        h = gplz.parse_header(data[b, : int(r.total_bytes[b])])
+        data[b, h["sec_meta"] + h["flags"]] ^= 0x21
+    return dataclasses.replace(r, data=data)
 
-    monkeypatch.setattr(lzss, "compress", compress)
+
+def _flip_output(out):
+    """One byte of one output altered: an answer altered where it is
+    produced (an array, or the middle one of a list)."""
+    if isinstance(out, list):
+        out, m = list(out), len(out) // 2
+        out[m] = _flip_output(out[m])
+        return out
+    out = out.copy()
+    out[out.size // 2] ^= 0x10
+    return out
 
 
-def _flip_output(monkeypatch):
+def _tamper(monkeypatch, man, cell):
+    """Patch the ``lzss`` function the cell's timed call goes through (its
+    op's ``ENTRY``) to alter what it returns: a write's container, a
+    read's output."""
     from repro_torch.core import lzss
 
-    real = lzss.decompress
-
-    def decompress(*a, **k):  # an answer altered where it is produced
-        out = real(*a, **k).copy()
-        out[out.size // 2] ^= 0x10
-        return out
-
-    monkeypatch.setattr(lzss, "decompress", decompress)
+    op = harness.load_module("ops", small(man, cell)["traffic"]["op"])
+    real = getattr(lzss, op.ENTRY)
+    alter = _flip_container if op.Op.direction == "write" else _flip_output
+    monkeypatch.setattr(lzss, op.ENTRY, lambda *a, **k: alter(real(*a, **k)))
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_an_altered_answer_is_not_correct(man, cell, monkeypatch):
-    (_flip_container if cell.endswith(".write") else _flip_output)(monkeypatch)
+    _tamper(monkeypatch, man, cell)
     result, checks = _run(man, cell)
     assert not result["correct"], checks
+
+
+@pytest.mark.parametrize("cycles", (1, 2))
+def test_a_traced_window_ends_after_its_traffics_cycles(man, cycles):
+    """A traffic's ``traced_cycles`` ends a traced window after that many
+    cycles through the items; the untraced window runs its seconds."""
+    kw = small(man, "isabel-quant-lz.blocks")
+    kw["traffic"] = dict(kw["traffic"], traced_cycles=cycles)
+    fields = kw["config"]["data"]["fields"]
+    traced, checks = harness.run_cell(man, "isabel-quant-lz.blocks", seed=SEED, seconds=60,
+                                      trace=True, device="cpu", **kw)
+    assert traced["correct"], checks
+    assert traced["attempted"] == cycles * fields
+    assert traced["device"]["window_s"] < 60
+    plain, checks = harness.run_cell(man, "isabel-quant-lz.blocks", seed=SEED, seconds=0.5,
+                                     trace=False, device="cpu", **kw)
+    assert plain["correct"], checks
+    assert plain["attempted"] > cycles * fields
 
 
 def _main_lines(man, cell, monkeypatch, argv_extra=()):
@@ -91,7 +123,7 @@ def _main_lines(man, cell, monkeypatch, argv_extra=()):
     real = harness.run_cell
 
     def on_cpu(m, c, **kw):
-        return real(m, c, **dict(kw, device="cpu", config=small_config(m, c)))
+        return real(m, c, **dict(kw, device="cpu", **small(m, c)))
 
     monkeypatch.setattr(harness, "run_cell", on_cpu)
     out, err = io.StringIO(), io.StringIO()
@@ -166,10 +198,33 @@ def test_a_run_loads_no_forbidden_module(man):
     assert p.stdout.split()[-2:] == ["True", "[]"]
 
 
+INT_COLUMNS = """\
+import torch
+
+
+def make(spec, seed, device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) % (1 << 63))
+    x = torch.randint(0, spec["distinct"], (spec["columns"], spec["rows_per_column"]),
+                      generator=gen, dtype=torch.int32, device=device)
+    return x.view(torch.uint8)
+
+
+def small(spec, elements, fields):
+    return dict(spec, rows_per_column=elements, columns=fields)
+"""
+
+
 def test_a_cell_added_from_files_alone(tmp_path):
-    """A new configuration, traffic mix, cell and per-layer metric, added as
-    files and manifest entries only: the copied harness runs them."""
+    """Two new cells added as files and manifest entries only: a
+    configuration, a traffic mix, a cell and a per-layer metric on the
+    ``compress`` op; and a generator with keys of its own making int32
+    columns (the ``i32`` form), its configuration, and a traffic mix on
+    the ``compress_many`` op.  The copied harness runs them, and the
+    copy's own parametrised tests pass on both with no copied file
+    edited."""
     shutil.copytree(BENCH, tmp_path / "bench", ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in (tmp_path / "bench").rglob("*") if p.is_file()}
     m = json.loads((ROOT / "BENCHMARK.json").read_text())
     cfg = json.loads((BENCH / "configs" / "isabel-quant-lz.json").read_text())
     cfg.update(name="tiny-quant-w32", codec=dict(cfg["codec"], window=32))
@@ -180,13 +235,29 @@ def test_a_cell_added_from_files_alone(tmp_path):
     (tmp_path / "bench" / "metrics" / "calls_per_item.py").write_text(
         "def read(run, variant):\n"
         "    return len(run.calls) / run.fields.shape[0]\n")
-    m["configs"].append(dict(name="tiny-quant-w32", source="test", reduced=[], why="test",
-                             file="bench/configs/tiny-quant-w32.json"))
+    (tmp_path / "bench" / "gen" / "int_columns.py").write_text(INT_COLUMNS)
+    ints = dict(name="tiny-i32", source="test", deployment="x",
+                data=dict(generator="int_columns", rows_per_column=4096, columns=3,
+                          distinct=50, form="i32"),
+                codec=dict(symbol_size=4, window=64, chunk_symbols=256),
+                guarantee=dict(kind="lossless"), roofline_ops="window_walk_compares", reduced=[])
+    (tmp_path / "bench" / "configs" / "tiny-i32.json").write_text(json.dumps(ints))
+    batched = dict(op="compress_many", loop="closed", clients=1, buffer_bytes=4096,
+                   warmup_cycles=1, why="x")
+    (tmp_path / "bench" / "traffic" / "write-batched.json").write_text(json.dumps(batched))
+    for name in ("tiny-quant-w32", "tiny-i32"):
+        m["configs"].append(dict(name=name, source="test", reduced=[], why="test",
+                                 file=f"bench/configs/{name}.json"))
     m["workloads"].append(dict(name="tiny.write", config="tiny-quant-w32",
                                traffic="write-twice-warm", chips=1, why="test"))
+    m["workloads"].append(dict(name="tiny-i32.blocks", config="tiny-i32",
+                               traffic="write-batched", chips=1, why="test"))
     for e in m["end_to_end"]:
         if "workloads" in e and "isabel-quant-lz.write" in e["workloads"]:
-            e["workloads"].append("tiny.write")
+            e["workloads"] += ["tiny.write", "tiny-i32.blocks"]
+    for e in m["per_layer"]:
+        if "isabel-quant-lz.write" in e.get("workloads", ()):
+            e["workloads"] += ["tiny.write", "tiny-i32.blocks"]
     m["per_layer"].append(dict(name="calls_per_item.any", unit="calls", better="higher",
                                source="host_clock", layer="traffic", moves="compress_GBps",
                                workloads=["tiny.write"]))
@@ -209,3 +280,16 @@ def test_a_cell_added_from_files_alone(tmp_path):
     assert {"compress_GBps", "ratio", "p95_call_ms", "setup_s"} <= set(plain["metrics"])
     assert traced["metrics"]["calls_per_item.any"]["value"] >= 1
     assert np.isfinite(plain["metrics"]["ratio"]["value"])
+    # the copy's parametrised tests, on the two new cells alone
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    p = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+                        "-p", "no:xdist", "-p", "no:randomly", "bench/tests", "-k", "tiny"],
+                       capture_output=True, text=True, timeout=600, cwd=str(tmp_path), env=env)
+    assert p.returncode == 0, p.stdout[-3000:]
+    tail = p.stdout.strip().splitlines()[-1]
+    params = ("test_a_sound_run_is_correct", "test_the_control_is_not_correct",
+              "test_an_altered_answer_is_not_correct",
+              "test_traced_cpu_run_reads_the_programs_counters")
+    assert f"{2 * len(params)} passed" in tail and "failed" not in tail, tail
+    after = {p: p.read_bytes() for p in before}
+    assert after == before  # no copied file was edited

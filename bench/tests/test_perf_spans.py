@@ -10,7 +10,7 @@ import sys
 
 import pytest
 
-from _perf_common import CELLS, man, small_config  # noqa: F401
+from _perf_common import CELLS, man, small  # noqa: F401
 from bench import devtrace, harness, spans
 
 SEED = 3_000_000_019
@@ -87,35 +87,14 @@ def runs(monkeypatch):
     return made
 
 
-def _per_call_extra(cell, run):
-    """Bytes a call copies besides the container (once each way, and once
-    on the host in a read) and the field (read): every small copy's site."""
-    from repro_torch.core import format as fmt
-
-    tables = 4 * (256 + 256 + 16 + 16 + 16 + 256)  # entropy.canonical_tables, six int32
-    codec = run.config["codec"]
-    field = run.program_fields.shape[1]
-    nc = -(-field // (codec["symbol_size"] * codec["chunk_symbols"]))
-    if cell == "isabel-quant-lz.write":
-        return 8 + fmt.HEADER_BYTES  # pipeline.totals (two int32), the header
-    if cell == "isabel-quant-lz.read":
-        return 8 * nc  # the A/B tables beside the container
-    # lossy-fz with a deflate-full inner
-    if cell == "isabel-f32-fz.write":
-        h2d = (2 * 4 + fmt.HEADER_BYTES + 2 * tables + fmt.HEADER_BYTES + fmt.ENTROPY_META_FIXED
-               + fmt.HEADER_BYTES + fmt.LOSSY_META_FIXED)
-        d2h = 8 + fmt.HEADER_BYTES + 2 * 256 * 4 + 2 * 8  # totals, header, histograms, bits
-        return h2d + d2h
-    _, _, inner_nc = fmt.lossy_stream_geometry(nc, codec["chunk_symbols"], fmt.LOSSY_MODE_QUANT)
-    h2d = 2 * tables + 2 * 4 + 1  # tables, two f32 scalars, the outlier mask's True
-    d2h = 256 + 4 + fmt.HEADER_BYTES + 8 * inner_nc + fmt.ENTROPY_META_FIXED
-    return h2d + d2h
-
-
-SYNCS = {  # tests/test_torch_trace.py's per-path counts, confirmed on the card
-    "isabel-quant-lz.write": 3, "isabel-f32-fz.write": 26,
-    "isabel-quant-lz.read": 4, "isabel-f32-fz.read": 20,
-}
+def expected_counters(run) -> tuple:
+    """(copy bytes over field bytes, host syncs a call) of the run's window,
+    from what its op declares a call copies and syncs on the card's
+    registry (``Op.traced_counts``, keyed by the op and the codec's
+    backend)."""
+    counts = [run.op.traced_counts(c) for c in run.calls]
+    return (sum(b for b, _ in counts) / run.field_bytes(),
+            sum(n for _, n in counts) / len(run.calls))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -123,18 +102,16 @@ def test_traced_cpu_run_reads_the_programs_counters(man, cell, card_paths, runs)
     from repro_torch.runtime import trace
 
     result, checks = harness.run_cell(man, cell, seed=SEED, seconds=0.3, trace=True,
-                                      device="cpu", config=small_config(man, cell))
+                                      device="cpu", **small(man, cell))
     assert result["correct"], checks
     assert not trace.enabled()  # the window's end turned it off
     run = runs[0]
     got = result["metrics"]
-    variant = cell.rsplit(".", 1)[1]
-    calls = len(run.calls)
-    moved = run.stored_bytes() * (1 if variant == "write" else 2)  # + _validated's copy
-    moved += 0 if variant == "write" else run.field_bytes()
-    want = (moved + calls * _per_call_extra(cell, run)) / run.field_bytes()
-    assert got[f"copy_bytes_per_field_byte.{variant}"]["value"] == pytest.approx(want, rel=1e-12)
-    assert got[f"host_syncs_per_call.{variant}"]["value"] == SYNCS[cell]
+    variant = run.op.direction
+    copy_bytes, syncs = expected_counters(run)
+    assert got[f"copy_bytes_per_field_byte.{variant}"]["value"] == pytest.approx(copy_bytes,
+                                                                                 rel=1e-12)
+    assert got[f"host_syncs_per_call.{variant}"]["value"] == syncs
     assert not {f"{m}.{variant}" for m in CARD_ONLY} & set(got)
 
 
@@ -145,7 +122,7 @@ def test_a_program_without_the_tracer_reads_nothing(man, monkeypatch):
     monkeypatch.delattr(repro_torch.runtime, "trace")  # as a parent commit has none:
     monkeypatch.setitem(sys.modules, "repro_torch.runtime.trace", None)  # import fails
     result, checks = harness.run_cell(man, cell, seed=SEED, seconds=0.2, trace=True,
-                                      device="cpu", config=small_config(man, cell))
+                                      device="cpu", **small(man, cell))
     assert result["correct"], checks
     new = ("copy_bytes_per_field_byte", "host_syncs_per_call") + CARD_ONLY
     assert not {f"{m}.read" for m in new} & set(result["metrics"])
