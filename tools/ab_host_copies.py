@@ -2,7 +2,8 @@
 card: where the field lands after its device-to-host copy, and where the
 container sits before its host-to-device copy.
 
-    python3 tools/ab_host_copies.py [--repeats 20] [--out chiprun_out/ab_host_copies.json]
+    python3 tools/ab_host_copies.py [--repeats 20] [--d2h-sizes 65536,50000000,100000000]
+                                    [--out chiprun_out/ab_host_copies.json]
 
 Each copy is blocking and timed on the host clock from before the call to
 its return, as a caller of ``lzss.decompress`` waits for it:
@@ -15,8 +16,10 @@ its return, as a caller of ``lzss.decompress`` waits for it:
                     allocator each time and dropped after it
                     (``torch.empty(n, pin_memory=True)``)
 
-The D2H sizes are 64 KiB, 50 MB and 100 MB, the H2D sizes 15 MB and 20 MB
-(a read cell's field and container).  The ways take turns within each
+The D2H sizes are 64 KiB, 50 MB and 100 MB unless ``--d2h-sizes`` names
+others (a write's containers run from about 15 MB for an ISABEL code field
+to 16-248 MB for a TPC-H lineitem int32 column), the H2D sizes 15 MB and
+20 MB (a read cell's field and container).  The ways take turns within each
 repeat.  For the H2D the host copy into the buffer (``stage``) and the
 copy to the card (``h2d``) are timed apart.  Then one allocation of a
 64 MiB and a 128 MiB page-locked block (after the host cache is emptied),
@@ -169,6 +172,8 @@ def pinned_allocation(repeats: int = 3) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=20)
+    ap.add_argument("--d2h-sizes", default=",".join(map(str, D2H_SIZES)),
+                    help="comma-separated byte counts of the D2H copies")
     ap.add_argument("--out", default="chiprun_out/ab_host_copies.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -182,7 +187,7 @@ def main() -> None:
         "host_memory_stats": host_allocs() is not None,
         "from_numpy_of_pinned_is_pinned": torch.from_numpy(probe.numpy()).is_pinned(),
         "meminfo_before": meminfo(),
-        "d2h": {n: d2h(n, args.repeats, dev) for n in D2H_SIZES},
+        "d2h": {n: d2h(n, args.repeats, dev) for n in map(int, args.d2h_sizes.split(","))},
         "h2d": {n: h2d(n, args.repeats, dev) for n in H2D_SIZES},
         "alloc": pinned_allocation(),
         "meminfo_after": meminfo(),
