@@ -143,7 +143,8 @@ def _pinned(shape) -> torch.Tensor:
 def _to_host(t: torch.Tensor, pinned: bool = False) -> np.ndarray:
     """A device result -> numpy: one blocking device-to-host copy, into a
     fresh pageable buffer or, with ``pinned``, into a block of ``_pinned``
-    (``t`` is then uint8) that the returned array holds."""
+    (``t`` is then uint8).  The returned array then holds its block, which
+    goes back to torch's host cache when the array is dropped."""
     trace.count("bytes_d2h", t.numel() * t.element_size())
     trace.count("host_syncs", 1)
     if not pinned:
@@ -174,7 +175,14 @@ def _n_chunks(n_bytes: int, cfg: LZSSConfig) -> int:
 
 
 def compress(data, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> CompressResult:
-    """Compress any array/bytes. Pads to whole chunks; header records truth."""
+    """Compress any array/bytes. Pads to whole chunks; header records truth.
+
+    On a CUDA device the container comes back into page-locked host memory
+    from torch's caching host allocator, reused across calls.  The returned
+    ``data`` holds its block, which goes back to that cache when the array
+    is dropped; a caller who keeps many results can take a pageable copy
+    with ``np.array(res.data)``.
+    """
     dev = resolve_device(device)
     with trace.span("lzss.compress") as root:
         with trace.span("lzss.h2d", dev):
@@ -187,7 +195,7 @@ def compress(data, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> Compress
             buf, total = compress_chunks(symbols, config, n)
         root.set(bytes=n, method=container_method(config.backend))
         with trace.span("lzss.d2h", dev):
-            host = _to_host(buf[:total])
+            host = _to_host(buf[:total], dev.type == "cuda")
     return CompressResult(data=host, orig_bytes=n, total_bytes=total)
 
 
@@ -309,6 +317,11 @@ def compress_many(arrays, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> B
     ``arrays`` is a list of array-likes or tensors (ragged sizes allowed —
     every buffer is padded to the batch's common chunk count, headers record
     true sizes) or a (B, n) array treated as B equal-size buffers.
+
+    On a CUDA device the (B, cap) buffer comes back into page-locked host
+    memory, as ``compress``'s container does: ``data``, and every row taken
+    from it, holds that block until all of them are dropped;
+    ``np.array(batch.data)`` gives a pageable copy.
     """
     dev = resolve_device(device)
     if isinstance(arrays, (np.ndarray, torch.Tensor)) and arrays.ndim == 2:
@@ -327,7 +340,7 @@ def compress_many(arrays, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> B
             data, totals = compress_many_chunks(symbols, config, sizes)
         root.set(bytes=sum(sizes), method=container_method(config.backend), buffers=len(sizes))
         with trace.span("lzss.d2h", dev):
-            host = _to_host(data)
+            host = _to_host(data, dev.type == "cuda")
     return BatchedCompressResult(
         data=host,
         orig_bytes=np.asarray(sizes, np.int64),

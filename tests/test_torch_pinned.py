@@ -1,12 +1,14 @@
-"""``lzss.decompress``'s host staging: on a CUDA device the container's host
-copy and the result live in page-locked blocks of torch's caching host
-allocator, on the CPU in pageable memory as before.
+"""The host API's page-locked staging: on a CUDA device ``lzss.decompress``'s
+container host copy and result, and ``compress``'s and ``compress_many``'s
+containers, live in page-locked blocks of torch's caching host allocator;
+on the CPU in pageable memory as before.
 
-The CPU cases hold the CPU path to what it returned before (the bytes, a
-writable uint8 array of ``orig_bytes``, nothing staged through page-locked
-memory), a kept result to its bytes over later calls, a corrupt container
-to its ``ValueError``, and the two staging sites to their counts on a
-pageable stand-in for the allocator.  The ``gpu`` cases run on the card:
+The CPU cases hold the CPU paths to what they returned before (the bytes, a
+writable uint8 array of ``orig_bytes``, ``total_bytes`` or (B, cap),
+nothing staged through page-locked memory), a kept result to its bytes
+over later calls, a corrupt container to its ``ValueError``, and the
+staging sites to their counts on a pageable stand-in for the allocator.
+The ``gpu`` cases run on the card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_pinned.py
 
@@ -39,6 +41,41 @@ def _field(m, n=N, seed=7):
         x[5] = np.nan  # one outlier at least
         return x
     return np.repeat(rng.integers(0, 6, n), rng.integers(1, 9, n)).astype(np.uint8)[:n]
+
+
+def _case(m, n=N, seed=7):
+    """Case ``m``'s configuration and field; ``"odd"`` is raw LZSS at S=4 on
+    ``n + 3`` bytes, not a multiple of S."""
+    if m == "odd":
+        return ODD, _field(0, n + 3, seed)
+    return CONFIGS[m], _field(m, n, seed)
+
+
+def _batch(m, seed=7):
+    """Case ``m``'s configuration and three fields of ragged sizes."""
+    cfg = _case(m)[0]
+    return cfg, [_case(m, n, seed + i)[1] for i, n in enumerate((N, N // 2, N // 4))]
+
+
+def _pipeline_containers(cfg, fields):
+    """The (B, cap) buffer and totals of ``fields`` straight from the
+    pipeline on the CPU, before the host API copies them anywhere."""
+    raws = [torch.from_numpy(np.ascontiguousarray(f).view(np.uint8).reshape(-1)) for f in fields]
+    nc = lzss._n_chunks(max(r.numel() for r in raws), cfg)
+    symbols = torch.stack([lzss._pack_padded(r, nc, cfg) for r in raws])
+    buf, totals = pipeline.compress_many_chunks(
+        symbols, pipeline.resolve_chunk_geometry(cfg), [r.numel() for r in raws])
+    return buf.numpy(), [int(t) for t in totals]
+
+
+def _write(entry, m, device="cpu"):
+    """One write of case ``m`` through ``entry``; its ``data`` is the
+    container, or ``compress_many``'s whole (B, cap) buffer."""
+    if entry == "compress":
+        cfg, field = _case(m)
+        return lzss.compress(field, cfg, device=device)
+    cfg, fields = _batch(m)
+    return lzss.compress_many(fields, cfg, device=device)
 
 
 def _blob(m, device="cpu", n=N, seed=7):
@@ -74,6 +111,14 @@ def _check_lossy(out, field, eb):
     assert np.abs(y[ok].astype(np.float64) - field[ok]).max() <= eb
 
 
+def _check_back(back, field, m):
+    """A decoded case-``m`` field: within the bound for lossy, else exact."""
+    if m == 2:
+        _check_lossy(back, field, 1e-3)
+    else:
+        assert np.array_equal(back, field.view(np.uint8))
+
+
 # ------------------------------------------------------------ on the CPU
 
 
@@ -104,6 +149,95 @@ def test_cpu_kept_result_survives_later_calls():
     for other in others:
         lzss.decompress(other, device="cpu")
     assert np.array_equal(kept, before) and np.array_equal(kept, field)
+
+
+@pytest.mark.parametrize("m", [0, 1, 2, "odd"])
+def test_cpu_compress_returns_what_it_did_and_stages_nothing(tracing, registry, m):
+    cfg, field = _case(m)
+    tracing.reset()
+    res = lzss.compress(field, cfg, device="cpu")
+    c = tracing.snapshot()["counters"]
+    assert c["pinned_bytes"] == c["pinned_allocs"] == 0
+    out = res.data
+    assert isinstance(out, np.ndarray) and out.dtype == np.uint8 and out.ndim == 1
+    assert out.size == res.total_bytes and out.flags.writeable
+    assert res.orig_bytes == field.nbytes
+    buf, (total,) = _pipeline_containers(cfg, [field])
+    assert total == res.total_bytes and np.array_equal(out, buf[0, :total])
+    _check_back(lzss.decompress(out, device="cpu"), field, m)
+
+
+@pytest.mark.parametrize("m", [0, 1, 2, "odd"])
+def test_cpu_compress_many_returns_what_it_did_and_stages_nothing(tracing, registry, m):
+    cfg, fields = _batch(m)
+    tracing.reset()
+    batch = lzss.compress_many(fields, cfg, device="cpu")
+    c = tracing.snapshot()["counters"]
+    assert c["pinned_bytes"] == c["pinned_allocs"] == 0
+    out = batch.data
+    buf, totals = _pipeline_containers(cfg, fields)
+    assert isinstance(out, np.ndarray) and out.dtype == np.uint8
+    assert out.shape == buf.shape and out.flags.writeable
+    assert np.array_equal(out, buf) and batch.total_bytes.tolist() == totals
+    assert batch.orig_bytes.tolist() == [f.nbytes for f in fields]
+    for field, back in zip(fields, lzss.decompress_many(batch, device="cpu")):
+        _check_back(back, field, m)
+
+
+@pytest.fixture
+def staged_writes(monkeypatch, stand_in_allocator):
+    """The host API's D2H sites staged through the stand-in's blocks, as on
+    a card; the list records the ``pinned`` each site was called with."""
+    asked = []
+    real = lzss._to_host
+
+    def to_host(t, pinned=False):
+        asked.append(pinned)
+        return real(t, pinned=True)
+
+    monkeypatch.setattr(lzss, "_to_host", to_host)
+    return asked
+
+
+@pytest.mark.parametrize("entry", ["compress", "compress_many"])
+@pytest.mark.parametrize("m", [0, 1, 2, "odd"])
+def test_write_staging_site_counts_on_a_stand_in_block(tracing, request, entry, m):
+    plain_bytes = _write(entry, m).data
+    plain_counts = tracing.snapshot()["counters"]
+    # the same call with its container staged through a stand-in block
+    asked = request.getfixturevalue("staged_writes")
+    tracing.reset()
+    res = _write(entry, m)
+    out = res.data
+    c = tracing.snapshot()["counters"]
+    assert asked == [False]  # the CPU's own path asks for no block
+    assert out.dtype == np.uint8 and out.flags.writeable and out.shape == plain_bytes.shape
+    assert np.array_equal(out, plain_bytes) and not np.shares_memory(out, plain_bytes)
+    assert c["pinned_bytes"] == out.size and c["pinned_allocs"] == 1
+    if entry == "compress":
+        assert out.size == res.total_bytes
+    else:
+        assert out.size == len(res) * out.shape[1]
+    # the same copy, bytes and syncs as the pageable path
+    for k in ("bytes_d2h", "bytes_h2d", "bytes_host_copy", "host_syncs"):
+        assert c[k] == plain_counts[k], k
+    assert plain_counts["pinned_bytes"] == 0
+
+
+@pytest.mark.parametrize("staging", ["pageable", "stand-in"])
+@pytest.mark.parametrize("m", [0, 1, 2, "odd"])
+def test_cpu_kept_compress_result_survives_later_calls(request, staging, m):
+    if staging == "stand-in":
+        request.getfixturevalue("staged_writes")
+    cfg, field = _case(m)
+    kept = lzss.compress(field, cfg, device="cpu")
+    before = kept.data.copy()
+    for i, (k, n) in enumerate([(0, N // 2), (1, N * 2), (2, N // 4), ("odd", N), (0, N * 3)]):
+        c, f = _case(k, n, seed=11 + i)
+        lzss.compress(f, c, device="cpu")
+        lzss.compress_many([f, f[: n // 2]], c, device="cpu")
+    assert np.array_equal(kept.data, before)
+    _check_back(lzss.decompress(kept.data, device="cpu"), field, m)
 
 
 def _truncated_header(blob):
@@ -251,3 +385,55 @@ def test_card_corrupt_container_raises_before_any_h2d(cuda, kind):
         trace.reset()
     assert c["bytes_h2d"] == 0 and c["host_syncs"] == 0
     assert np.array_equal(lzss.decompress(blob), field)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["compress", "compress_many"])
+@pytest.mark.parametrize("m", [0, 1, 2, "odd"])
+def test_card_write_result_is_page_locked_and_equals_the_cpu_path(cuda, entry, m):
+    res = _write(entry, m, device=cuda)
+    out = res.data
+    assert torch.from_numpy(out).is_pinned()
+    assert out.dtype == np.uint8 and out.flags.writeable
+    if entry == "compress":
+        assert out.size == res.total_bytes
+    cpu_out = _write(entry, m).data
+    assert out.shape == cpu_out.shape and np.array_equal(out, cpu_out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["compress", "compress_many"])
+@pytest.mark.parametrize("m", [0, 1, 2, "odd"])
+def test_card_write_steady_state_allocates_no_block(cuda, entry, m):
+    for _ in range(3):  # warm: the kernels, the allocator's blocks
+        _write(entry, m, device=cuda)
+    torch.cuda.synchronize()
+    trace.reset()
+    trace.enable()
+    try:
+        # each result is dropped before the next call, as the warm-up's were
+        sizes = [_write(entry, m, device=cuda).data.size for _ in range(10)]
+        c = trace.snapshot()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert c["pinned_allocs"] == 0
+    assert c["pinned_bytes"] == sum(sizes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [0, 1, 2, "odd"])
+def test_card_kept_compress_result_survives_later_calls(cuda, m):
+    cfg, field = _case(m)
+    kept = lzss.compress(field, cfg)
+    before = kept.data.copy()
+    later = [(m, N), (0, N // 2), (1, N * 2), (2, N // 4), ("odd", N)]
+    for i in range(20):  # every size class again, and the kept one's
+        k, n = later[i % len(later)]
+        c, f = _case(k, n, seed=11 + i)
+        if i % 2:
+            lzss.compress_many([f, f[: n // 2]], c)
+        else:
+            lzss.compress(f, c)
+    assert np.array_equal(kept.data, before)
+    _check_back(lzss.decompress(kept.data), field, m)
