@@ -594,9 +594,9 @@ def main() -> None:
     # ------------------------------ the codec's modules: one path each
     seconds = {}
     # serving and grad run before models: right after the gradient exchange
-    # the bitshuffle pair and the gap decoder time 7-18% slower for a moment
-    # (tools/phase_aftermath.py), so models_phase stands between the
-    # exchange and the per-kernel times below, as it did before
+    # the bitshuffle pair and the gap decoder time 7-18% slower for a moment,
+    # so models_phase stands between the exchange and the per-kernel times
+    # below, as it did before
     for phase in (autotune_phase, params_phase, sharded_phase, twins_phase, data_phase,
                   serving_phase, grad_phase, train_phase, bench_phase, models_phase):
         t0 = time.perf_counter()

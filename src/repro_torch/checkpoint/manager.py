@@ -474,7 +474,6 @@ class CheckpointManager:
                 [blobs.pop(n) for n in group], decoder=decoder, device=self.device,
                 mesh=self.lz_mesh if sharded else None,
                 batch_axis=self.lz_batch_axis if sharded else None,
-                chunks_per_block=self.lz_chunks_per_block,
             )
             decompressed.update(zip(group, raws))
             del raws

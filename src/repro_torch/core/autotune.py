@@ -35,14 +35,8 @@ The Hopper adaptations of the reference:
     ``SMEM_LIMIT_BYTES``, the shared memory one thread block may use.
     ``candidates`` filters by that fit and ``_entry_geometry`` re-checks a
     cached entry against it on every hit.
-  * **The g axis.**  No Hopper kernel reads ``chunks_per_block`` (one thread
-    block runs one chunk), so the g ladder is ``(DEFAULT_CHUNKS_PER_BLOCK,)``:
-    a fixed-C key (``block_geometry``) has exactly one candidate, and
-    ``best_geometry`` returns it without timing, file I/O or a cache entry,
-    memoised.  While the ladder has one rung the host calls'
-    ``pipeline.resolve_chunk_geometry`` / ``resolve_decode_geometry`` do
-    not consult the tuner at all.  The joint key sweeps C over the
-    reference's ladder (512, 1024, 2048, 4096).
+  * **The g axis.**  g is fixed at ``DEFAULT_CHUNKS_PER_BLOCK``: no Hopper
+    kernel reads ``chunks_per_block`` (one thread block runs one chunk).
   * **Device kind.**  ``torch.cuda.get_device_name(0)`` with spaces as
     ``_`` (``NVIDIA_H100_80GB_HBM3``), or ``"cpu"`` without a card.
   * **Gating.**  ``REPRO_AUTOTUNE=1`` forces tuning on, ``0`` forces the
@@ -88,11 +82,9 @@ CACHE_VERSION = 1
 CACHE_ENV = "REPRO_AUTOTUNE_CACHE"
 ENABLE_ENV = "REPRO_AUTOTUNE"
 
-# Candidate grids: the reference's pow-2 C ladder; one g, as no Hopper
-# kernel reads it.  Candidates over the shared-memory budget are filtered
-# per key.
+# Candidate grid: the reference's pow-2 C ladder, each C with the one g.
+# Candidates over the shared-memory budget are filtered per key.
 CHUNK_SYMBOL_CANDIDATES = (512, 1024, 2048, 4096)
-CHUNKS_PER_BLOCK_CANDIDATES = (DEFAULT_CHUNKS_PER_BLOCK,)
 
 # Bytes of input each candidate of a sweep is timed on.
 SWEEP_BYTES = 32 << 20
@@ -208,8 +200,7 @@ def validate_block_geometry(
         )
 
 
-def _fits(c: int, g: int, s: int) -> bool:
-    del g  # one thread block a chunk: g does not change the need
+def _fits(c: int, s: int) -> bool:
     return kernel_smem_bytes(c, s) + SMEM_STATIC_BYTES <= SMEM_LIMIT_BYTES
 
 
@@ -238,12 +229,7 @@ def candidates(key: TuneKey):
         if key.chunk_symbols is None
         else (key.chunk_symbols,)
     )
-    out = [
-        (c, g)
-        for c in cs
-        for g in CHUNKS_PER_BLOCK_CANDIDATES
-        if _fits(c, g, key.symbol_size)
-    ]
+    out = [(c, DEFAULT_CHUNKS_PER_BLOCK) for c in cs if _fits(c, key.symbol_size)]
     return out or [fallback(key)]
 
 
@@ -299,7 +285,7 @@ def _entry_geometry(cache: dict, key: TuneKey) -> Optional[Tuple[int, int]]:
     c, g = int(entry["chunk_symbols"]), int(entry["chunks_per_block"])
     if key.chunk_symbols is not None and c != key.chunk_symbols:
         return None
-    if c % 8 or not _fits(c, g, key.symbol_size):
+    if c % 8 or not _fits(c, key.symbol_size):
         return None
     return c, g
 
@@ -484,36 +470,14 @@ def best_geometry(
 # ----------------------------------------------------- call-site helpers
 
 
-def block_geometry(
-    *,
-    symbol_size: int,
-    chunk_symbols: int,
-    direction: str,
-    window: int = 0,
-    dtype: Optional[str] = None,
-) -> int:
-    """``chunks_per_block`` for a call site whose C is committed (one
-    candidate on Hopper: a dictionary lookup after the first call)."""
-    key = TuneKey(
-        device_kind=device_kind(),
-        dtype=dtype or default_dtype(symbol_size),
-        symbol_size=symbol_size,
-        window=window if direction == "compress" else 0,
-        direction=direction,
-        chunk_symbols=chunk_symbols,
-    )
-    return best_geometry(key)[1]
-
-
 def tuned_chunk_geometry(
     *, symbol_size: int, window: int, dtype: Optional[str] = None
 ) -> Tuple[int, int]:
     """Joint (chunk_symbols, chunks_per_block) sweep for new containers.
 
-    Unlike ``block_geometry`` this chooses C — a *format-visible* parameter
-    (it changes container bytes), so it is only consulted when a config is
-    being built (``pipeline.tuned_config``), never to reinterpret an
-    existing container.
+    C is a *format-visible* parameter (it changes container bytes), so this
+    is only consulted when a config is being built (``pipeline.tuned_config``),
+    never to reinterpret an existing container.
     """
     key = TuneKey(
         device_kind=device_kind(),

@@ -41,8 +41,6 @@ from repro_torch.core.pipeline import (  # noqa: F401
     register_backend,
     register_decoder,
     resolve_backend,
-    resolve_chunk_geometry,
-    resolve_decode_geometry,
     resolve_decoder,
     tuned_config,
     unpack_symbols,
@@ -190,7 +188,6 @@ def compress(data, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> Compress
         n = raw.numel()
         with trace.span("lzss.pack"):
             symbols = _pack_padded(raw, _n_chunks(n, config), config)
-        config = resolve_chunk_geometry(config)  # eagerly, before the kernels
         with trace.span("lzss.dispatch"):
             buf, total = compress_chunks(symbols, config, n)
         root.set(bytes=n, method=container_method(config.backend))
@@ -264,9 +261,8 @@ def decompress(blob, decoder: str = "auto", device=None, chunks_per_block=None) 
     Raises ``ValueError`` on a truncated or corrupt container (the checks of
     ``format.validate_container``) before anything is decoded, and on a
     decoder that does not read the container's method.
-    ``chunks_per_block`` pins the decode geometry (format-invisible; ``None``
-    = ``pipeline.resolve_decode_geometry``, resolved here, before the
-    kernels run; no Hopper kernel reads it).
+    ``chunks_per_block`` is accepted for the reference's signature and has
+    no effect on the Hopper kernels.
 
     On a CUDA device the container's host copy and the result live in
     page-locked host memory from torch's caching host allocator, reused
@@ -296,10 +292,6 @@ def decompress(blob, decoder: str = "auto", device=None, chunks_per_block=None) 
                     chunk_symbols=h.chunk_symbols,
                     n_chunks=h.n_chunks,
                     decoder=dec,
-                    chunks_per_block=resolve_decode_geometry(
-                        chunks_per_block, symbol_size=h.symbol_size,
-                        chunk_symbols=h.chunk_symbols, decoder=dec, device=dev,
-                    ),
                 )
         with trace.span("lzss.unpack"):
             out = unpack_symbols(symbols.reshape(-1), h.symbol_size)[: h.orig_bytes]
@@ -335,7 +327,6 @@ def compress_many(arrays, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> B
         nc = _n_chunks(max(sizes), config)
         with trace.span("lzss.pack"):
             symbols = torch.stack([_pack_padded(r, nc, config) for r in raws])
-        config = resolve_chunk_geometry(config)  # eagerly, before the kernels
         with trace.span("lzss.dispatch"):
             data, totals = compress_many_chunks(symbols, config, sizes)
         root.set(bytes=sum(sizes), method=container_method(config.backend), buffers=len(sizes))
@@ -362,8 +353,8 @@ def decompress_many(batch, decoder: str = "auto", device=None, mesh=None, batch_
     (sharding/batch.py), each shard decoding with its device's default; an
     entropy or lossy batch decodes container by container, each on its
     shard's device.  The bytes are those of the unsharded dispatch.
-    ``chunks_per_block`` pins the decode geometry (``None`` =
-    ``pipeline.resolve_decode_geometry``).  Returns a list of uint8 arrays.
+    ``chunks_per_block`` is accepted for the reference's signature and has
+    no effect on the Hopper kernels.  Returns a list of uint8 arrays.
     """
     if mesh is None and batch_axis is not None:
         raise ValueError("batch_axis requires mesh=...")
@@ -449,10 +440,6 @@ def decompress_many(batch, decoder: str = "auto", device=None, mesh=None, batch_
                 chunk_symbols=h0.chunk_symbols,
                 n_chunks=h0.n_chunks,
                 decoder=dec,
-                chunks_per_block=resolve_decode_geometry(
-                    chunks_per_block, symbol_size=h0.symbol_size, chunk_symbols=h0.chunk_symbols,
-                    decoder=dec, device=dev,
-                ),
                 mesh=mesh,
                 batch_axis=batch_axis,
             )

@@ -291,8 +291,9 @@ class CompressorBackend(Protocol):
     ``lzss_many`` then calls it in place of the two seams.  A backend that
     owns a whole container format instead
     defines ``compress(symbols, cfg, orig_bytes)`` for one (nc, C) buffer,
-    returning ``(buffer (cap,) uint8, total bytes)``, and
-    ``container_method``, the method byte its containers carry.
+    returning ``(buffer (cap,) uint8, total bytes)``, ``compress_many``,
+    which builds the batch, and ``container_method``, the method byte its
+    containers carry.
     """
 
     name: str
@@ -567,7 +568,7 @@ class DecoderBackend(Protocol):
     ``method_params=`` too when its caller pins one, as the lossy decoder
     needs); or
     own the whole batched dispatch through ``decompress_many`` (the same
-    arguments plus ``chunks_per_block``, ``mesh`` and ``batch_axis``), as
+    arguments plus ``mesh`` and ``batch_axis``), as
     ``"sharded"`` does.  A decoder that owns a whole
     container format also defines ``decode_blob(blob, header)`` — a flat
     uint8 tensor holding the container's live bytes and its host-parsed
@@ -624,7 +625,6 @@ class TorchParallelDecoder:
     """Plain PyTorch parallel decoder (core/decode.py:decode_parallel)."""
 
     name = "torch-parallel"
-    uses_block_geometry = False  # plain PyTorch: no kernel geometry to tune
 
     def decode(self, flag_bytes, payload, n_tokens, *, symbol_size):
         return decode_mod.decode_parallel(flag_bytes, payload, n_tokens, symbol_size=symbol_size)
@@ -634,7 +634,6 @@ class TorchScanDecoder:
     """Sequential token walk (equivalence oracle)."""
 
     name = "torch-scan"
-    uses_block_geometry = False  # plain PyTorch: no kernel geometry to tune
 
     def decode(self, flag_bytes, payload, n_tokens, *, symbol_size):
         return decode_mod.decode_scan(flag_bytes, payload, n_tokens, symbol_size=symbol_size)
@@ -685,14 +684,13 @@ class ShardedDecoder:
     name = "sharded"
 
     def decompress_many(self, blobs, n_tokens, payload_sizes, *, symbol_size,
-                        chunk_symbols, n_chunks, chunks_per_block=None, mesh=None,
-                        batch_axis=None):
+                        chunk_symbols, n_chunks, mesh=None, batch_axis=None):
         from repro_torch.sharding import batch as shbatch  # lazy: avoid a cycle
 
         runner = shbatch.ShardedBatchRunner(mesh, batch_axis)
         return runner.decompress_many(
             blobs, n_tokens, payload_sizes, symbol_size=symbol_size,
-            chunk_symbols=chunk_symbols, n_chunks=n_chunks, chunks_per_block=chunks_per_block,
+            chunk_symbols=chunk_symbols, n_chunks=n_chunks,
         )
 
 
@@ -884,10 +882,10 @@ def compress_many_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None
     Row ``b`` holds a complete container in its first ``totals[b]`` bytes,
     zeros beyond.  ``orig_bytes`` (B host ints) are the true pre-padding
     byte counts for the headers; by default the padded size ``nc * C * S``.
-    A backend with a ``compress`` hook builds its containers one buffer at
-    a time (split over ``cfg.mesh`` by its ``compress_many`` hook); the raw
-    backends run ``lzss_many`` (one launch for the batch through a
-    ``compress_many`` hook).
+    A container backend (one with a ``compress`` hook) builds the batch
+    through its ``compress_many`` hook, one buffer at a time, split over
+    ``cfg.mesh``; the raw backends run ``lzss_many`` (one launch for the
+    batch through a ``compress_many`` hook).
     """
     if symbols.dim() != 3 or symbols.shape[2] != cfg.chunk_symbols:
         raise ValueError(
@@ -899,10 +897,7 @@ def compress_many_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None
     backend = get_backend(cfg.backend, symbols.device)
     if getattr(backend, "compress", None) is None:
         return lzss_many(backend, symbols, cfg, orig_bytes)
-    many = getattr(backend, "compress_many", None)
-    if many is not None:
-        return many(symbols, cfg, list(orig_bytes))
-    return _containers_many(backend, symbols, cfg, orig_bytes)
+    return backend.compress_many(symbols, cfg, list(orig_bytes))
 
 
 def compress_chunks(symbols: torch.Tensor, cfg: LZSSConfig, orig_bytes=None):
@@ -936,8 +931,7 @@ def decompress_many_chunks(blobs, n_tokens, payload_sizes, *, symbol_size,
     owner = getattr(dec, "decompress_many", None)
     if owner is not None:
         return owner(blobs, n_tokens, payload_sizes, symbol_size=s, chunk_symbols=c,
-                     n_chunks=nc, chunks_per_block=chunks_per_block, mesh=mesh,
-                     batch_axis=batch_axis)
+                     n_chunks=nc, mesh=mesh, batch_axis=batch_axis)
     many = getattr(dec, "decode_many", None)
     if many is not None:
         pin = {"method_params": method_params} if method_params else {}
@@ -966,65 +960,16 @@ def decompress_many_chunks(blobs, n_tokens, payload_sizes, *, symbol_size,
 
 def decompress_chunks(blob, n_tokens, payload_sizes, *, symbol_size, chunk_symbols,
                       n_chunks, decoder="auto", chunks_per_block=None):
-    """(L,) uint8 container bytes + (nc,) tables -> (nc, C) int32 symbols."""
+    """(L,) uint8 container bytes + (nc,) tables -> (nc, C) int32 symbols.
+    ``chunks_per_block`` is accepted for the reference's signature and has
+    no effect on the Hopper kernels."""
     return decompress_many_chunks(
         blob[None], n_tokens[None], payload_sizes[None], symbol_size=symbol_size,
         chunk_symbols=chunk_symbols, n_chunks=n_chunks, decoder=decoder,
-        chunks_per_block=chunks_per_block,
     )[0]
 
 
 # ------------------------------------------------------- tuned geometry
-
-
-def _tunes_block_geometry() -> bool:
-    """Whether a committed C leaves the tuner a g to choose: tuning on and
-    more than one rung on the g ladder.  On Hopper the ladder has one rung
-    (no kernel reads g), so the resolvers below pass their input through."""
-    return autotune.enabled() and len(autotune.CHUNKS_PER_BLOCK_CANDIDATES) > 1
-
-
-def resolve_chunk_geometry(cfg: LZSSConfig) -> LZSSConfig:
-    """Pin ``chunks_per_block`` eagerly, before the kernels run.
-
-    The host wrappers (``lzss.compress`` / ``compress_many``) call this
-    first, as the reference does before its jit boundary: when the tuner
-    has a g to choose and the user set no pin, the tuned g is resolved
-    here and baked into the config.  Otherwise (one rung on the g ladder,
-    tuning disabled, or an explicit pin) the config passes through
-    unchanged.
-    """
-    if cfg.chunks_per_block is not None or not _tunes_block_geometry():
-        return cfg
-    g = autotune.block_geometry(
-        symbol_size=cfg.symbol_size,
-        chunk_symbols=cfg.chunk_symbols,
-        direction="compress",
-        window=cfg.window,
-    )
-    return dataclasses.replace(cfg, chunks_per_block=g)
-
-
-def resolve_decode_geometry(chunks_per_block, *, symbol_size: int, chunk_symbols: int,
-                            decoder="auto", device=None):
-    """Decode-side mirror of ``resolve_chunk_geometry``.
-
-    Returns the ``chunks_per_block`` to pass into ``decompress_chunks`` /
-    ``decompress_many_chunks``: the caller's pin if given, the tuned g when
-    the tuner has a g to choose, else ``None``.  ``decoder`` resolves on
-    ``device`` (``None``: the card); decoders that run no kernel (the plain
-    entries mark themselves ``uses_block_geometry = False``) skip the tuner.
-    """
-    if chunks_per_block is not None or not _tunes_block_geometry():
-        return chunks_per_block
-    dev = "cuda" if device is None else device
-    if not getattr(get_decoder(decoder, dev), "uses_block_geometry", True):
-        return None  # geometry never reaches a kernel: nothing to tune
-    return autotune.block_geometry(
-        symbol_size=symbol_size,
-        chunk_symbols=chunk_symbols,
-        direction="decompress",
-    )
 
 
 def tuned_config(symbol_size: int = 2, window: int = 128, **overrides) -> LZSSConfig:

@@ -145,7 +145,7 @@ def _decompress_slabs(payload, used_lz, slab, cfg):
         n_tokens, payload_sizes = fmt.parse_tables_torch(blobs, nc)
         syms = pipeline.decompress_many_chunks(
             blobs, n_tokens, payload_sizes, symbol_size=2, chunk_symbols=c, n_chunks=nc,
-            decoder=cfg.decoder, chunks_per_block=cfg.chunks_per_block,
+            decoder=cfg.decoder,
         )
         codes[rows] = syms.reshape(rows.numel(), slab)
     return codes
@@ -163,8 +163,7 @@ def _decompress_slabs_lossy(payload, used_lz, slab, lcfg, scale):
         zeros = torch.zeros(rows.numel(), slab // c, dtype=torch.int32, device=payload.device)
         syms = pipeline.decompress_many_chunks(
             blobs, zeros, zeros, symbol_size=4, chunk_symbols=c, n_chunks=slab // c,
-            decoder="lossy-fz", chunks_per_block=lcfg.chunks_per_block,
-            method_params=_lossy_method_params(lcfg),
+            decoder="lossy-fz", method_params=_lossy_method_params(lcfg),
         )
         g[rows] = syms.reshape(rows.numel(), slab).view(torch.float32)
     return g

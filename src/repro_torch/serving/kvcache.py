@@ -208,8 +208,6 @@ class KVBlockStore:
                 [popped[i][2] for i in idxs], decoder=decoder, device=self.device,
                 mesh=self.config.mesh if sharded else None,
                 batch_axis=self.config.batch_axis if sharded else None,
-                # the config's geometry pin applies to BOTH directions
-                chunks_per_block=self.config.chunks_per_block,
             )
             self.stats.restore_dispatches += 1
             for i, raw in zip(idxs, raws):

@@ -230,11 +230,11 @@ class ShardedBatchRunner:
         return _take(out, b)
 
     def decompress_many(self, blobs, n_tokens, payload_sizes, *, symbol_size,
-                        chunk_symbols, n_chunks, decoder="auto", chunks_per_block=None):
+                        chunk_symbols, n_chunks, decoder="auto"):
         """(B, L) blobs + (B, nc) tables -> (B, nc, C) symbols, sharded."""
         dec = "auto" if decoder == "sharded" else decoder
         kw = dict(symbol_size=symbol_size, chunk_symbols=chunk_symbols, n_chunks=n_chunks,
-                  decoder=dec, chunks_per_block=chunks_per_block)
+                  decoder=dec)
         if self.mesh is None:
             return pipeline.decompress_many_chunks(blobs, n_tokens, payload_sizes, **kw)
         b = blobs.shape[0]

@@ -47,17 +47,9 @@ from repro_torch.runtime.fault import (
     StepGuard,
 )
 
+from _torch_threads import _one_thread  # noqa: F401
+
 FAST_RETRY = RetryPolicy(max_attempts=3, backoff_s=0.001)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for these small tensors: the suite runs several
-    workers on the host's cores, and idle threads spinning slow them all."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def CheckpointManager(directory, **kw):

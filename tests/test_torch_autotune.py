@@ -22,6 +22,8 @@ from repro_torch import core as tcore
 from repro_torch.core import autotune as tune
 from repro_torch.core import pipeline as tpipe
 
+from _torch_threads import _one_thread  # noqa: F401
+
 CPU = "cpu"
 LADDER = [(c, tune.DEFAULT_CHUNKS_PER_BLOCK) for c in tune.CHUNK_SYMBOL_CANDIDATES]
 
@@ -70,7 +72,6 @@ def test_constants_equal_reference():
     assert tune.CHUNK_SYMBOL_CANDIDATES == jtune.CHUNK_SYMBOL_CANDIDATES
     assert (tune.DEFAULT_CHUNK_SYMBOLS, tune.DEFAULT_CHUNKS_PER_BLOCK) == (
         jtune.DEFAULT_CHUNK_SYMBOLS, jtune.DEFAULT_CHUNKS_PER_BLOCK)
-    assert tune.CHUNKS_PER_BLOCK_CANDIDATES == (tune.DEFAULT_CHUNKS_PER_BLOCK,)
     assert tune.FALLBACK_TABLE == {}
 
 
@@ -181,7 +182,7 @@ def test_candidates_one_g_and_the_reference_ladder():
         assert tune.candidates(_key(symbol_size=s)) == LADDER
         assert tune.candidates(_key(64, symbol_size=s)) == [(64, 8)]
     # a C over the shared-memory budget has no candidate: the fallback
-    assert not tune._fits(65536, 8, 4)
+    assert not tune._fits(65536, 4)
     assert tune.candidates(_key(65536, symbol_size=4)) == [(65536, 8)]
 
 
@@ -205,7 +206,7 @@ def test_cached_entry_over_shared_memory_is_ignored(tuned_env):
     tune.validate_cache(json.loads(tuned_env.read_text()))
     calls = []
     geom = tune.best_geometry(key, _counting(calls))
-    assert calls == LADDER and tune._fits(*geom, 4)
+    assert calls == LADDER and tune._fits(geom[0], 4)
     tune.reset()
     assert tune.best_geometry(key, _counting(calls)) == geom and len(calls) == len(LADDER)
 
@@ -315,52 +316,44 @@ def test_sweep_inputs_are_what_the_pair_reads(s):
         assert torch.equal(got, want)
 
 
-@pytest.fixture(params=[(8,), (8, 16)], ids=["one-g", "two-g"])
-def g_ladder(request, tuned_env, monkeypatch):
-    """The port's one-rung g ladder, and a two-rung one under which the
-    resolvers consult the tuner (a few KiB a candidate)."""
-    monkeypatch.setattr(tune, "CHUNKS_PER_BLOCK_CANDIDATES", request.param)
-    monkeypatch.setattr(tune, "SWEEP_BYTES", 8 << 10)
-    return request.param
+def _host_entry(entry, inputs, cfg, **pin):
+    """The bytes out of one host entry point on the CPU, through the card's
+    one-launch pair: the containers of a write, the decoded bytes of a
+    read (``inputs`` are then containers)."""
+    if entry == "compress":
+        return [tcore.compress(inputs[0], cfg, device=CPU).data]
+    if entry == "compress_many":
+        return [tcore.compress_many(inputs, cfg, device=CPU).data]
+    if entry == "decompress":
+        return [tcore.decompress(inputs[0], decoder="fused-mono", device=CPU, **pin)]
+    return tcore.decompress_many(inputs, decoder="fused-mono", device=CPU, **pin)
 
 
-def test_host_entry_points_resolve_geometry_eagerly(g_ladder, tuned_env, monkeypatch):
-    """With tuning on, compress / decompress resolve the geometry before the
-    kernels.  With one g rung the tuner is not consulted (nothing to
-    choose); with two, a committed C is swept once a direction and a plain
-    decoder skips the tuner.  The containers are unchanged either way."""
-    tuned = len(g_ladder) > 1
-    data = np.random.default_rng(3).integers(0, 5, 3000).astype(np.uint16)
-    cfg = tcore.LZSSConfig(window=33, chunk_symbols=64)
-    res = tcore.compress(data, cfg, device=CPU)
-    ck = _key(64, window=33).cache_key()
-    dk = _key(64, direction="decompress").cache_key()
-    g = tcore.resolve_chunk_geometry(cfg).chunks_per_block
-    assert g in g_ladder if tuned else g is None
-    assert list(tune._MEMO) == ([ck] if tuned else [])
-    out = tcore.decompress(res.data, device=CPU)  # torch-parallel: no kernel
-    assert np.array_equal(out, data.view(np.uint8))
-    assert list(tune._MEMO) == ([ck] if tuned else [])
-    out = tcore.decompress(res.data, decoder="fused-mono", device=CPU)
-    assert np.array_equal(out, data.view(np.uint8))
-    assert (dk in tune._MEMO) == tuned
-    many = tcore.compress_many([data, data[:1000]], cfg, device=CPU)
-    assert many.config.chunks_per_block == g
-    assert all(np.array_equal(a, b.view(np.uint8)) for a, b in zip(
-        tcore.decompress_many(many, decoder="fused-mono", device=CPU), [data, data[:1000]]))
-    assert tuned_env.exists() == tuned
-    assert tune._SWEEPS == ({ck: 1, dk: 1} if tuned else {})
+@pytest.mark.parametrize("entry", ["compress", "compress_many", "decompress", "decompress_many"])
+def test_host_entry_points_never_consult_the_tuner(entry, tuned_env, monkeypatch):
+    """With tuning on, a host call at a committed C leaves the memo, the
+    sweep count and the cache file empty, and gives the bytes of the same
+    call with tuning off.  A read's ``chunks_per_block`` pin is accepted
+    and changes no byte: no Hopper kernel reads it."""
+    rng = np.random.default_rng(3)
+    fields = [rng.integers(0, 5, n).astype(np.uint16) for n in (3000, 1000)]
+    cfg = tcore.LZSSConfig(window=33, chunk_symbols=64, backend="fused-mono")
+    read = entry.startswith("decompress")
+    inputs = fields
+    if read:
+        monkeypatch.setenv(tune.ENABLE_ENV, "0")
+        batch = tcore.compress_many(fields, cfg, device=CPU)
+        inputs = [batch[b].data for b in range(len(batch))]
+        monkeypatch.setenv(tune.ENABLE_ENV, "1")
     tune.reset()
+    got = _host_entry(entry, inputs, cfg)
+    if read:
+        assert all(np.array_equal(g, f.view(np.uint8)) for g, f in zip(got, fields))
+        pinned = _host_entry(entry, inputs, cfg, chunks_per_block=16)
+        assert len(pinned) == len(got)
+        assert all(np.array_equal(a, b) for a, b in zip(pinned, got))
+    assert tune._MEMO == {} and tune._SWEEPS == {} and not tuned_env.exists()
     monkeypatch.setenv(tune.ENABLE_ENV, "0")
-    assert np.array_equal(tcore.compress(data, cfg, device=CPU).data, res.data)
-
-
-def test_decode_geometry_pin_and_plain_decoders(g_ladder):
-    kw = dict(symbol_size=2, chunk_symbols=64)
-    assert tpipe.resolve_decode_geometry(3, **kw) == 3
-    assert tpipe.resolve_decode_geometry(None, decoder="torch-parallel", device=CPU, **kw) is None
-    assert tpipe.resolve_decode_geometry(None, decoder="torch-scan", device=CPU, **kw) is None
-    got = tpipe.resolve_decode_geometry(None, decoder="fused", device=CPU, **kw)
-    assert got in g_ladder if len(g_ladder) > 1 else got is None
-    pinned = tcore.LZSSConfig(chunks_per_block=16)
-    assert tpipe.resolve_chunk_geometry(pinned) is pinned
+    tune.reset()
+    off = _host_entry(entry, inputs, cfg)
+    assert len(off) == len(got) and all(np.array_equal(a, b) for a, b in zip(off, got))

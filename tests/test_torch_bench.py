@@ -23,6 +23,8 @@ from repro_torch.benchmarks import common, fig8_ratio, fig9_throughput, fig10_de
 from repro_torch.benchmarks import lz4_format
 from repro_torch.core import lzss as tlzss
 
+from _torch_threads import _one_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CPU = "cpu"
 NAME_MAP = {"xla": "torch", "xla-parallel": "torch-parallel", "xla-scan": "torch-scan",

@@ -38,6 +38,8 @@ from repro_torch.core import lzss
 from repro_torch.kernels import ops
 from repro_torch.launch import roofline
 
+from _torch_threads import _one_thread  # noqa: F401
+
 jhuffman = pytest.importorskip("benchmarks.huffman")
 jtable1 = pytest.importorskip("benchmarks.table1_ratio")
 jtable3 = pytest.importorskip("benchmarks.table3_usecase")
@@ -45,16 +47,6 @@ jsharded = pytest.importorskip("benchmarks.sharded_batch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for these small tensors: the suite runs several
-    workers on the host's cores, and idle threads spinning slow them all."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _rows(text: str) -> list:

@@ -34,6 +34,8 @@ from repro_torch.core import bitshuffle as tbs
 from repro_torch.data import bitshuffle_edges as edges
 from repro_torch.kernels import lz_bitshuffle, ops
 
+from _torch_threads import _one_thread  # noqa: F401
+
 _SRC = (pathlib.Path(__file__).parents[1] / "src/repro_torch/csrc/lz_bitshuffle.cu").read_text()
 CASES = [(p, n) for p in edges.PATTERNS for n in edges.BLOCK_COUNTS]
 

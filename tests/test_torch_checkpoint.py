@@ -34,18 +34,9 @@ from repro_torch.sharding.rules import Placement
 
 import _ckpt_golden as golden
 from _torch_model_ref import pair
+from _torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for these small tensors: the suite runs several
-    workers on the host's cores, and idle threads spinning slow them all."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _mgr(path, **kw):

@@ -32,6 +32,8 @@ from repro_torch.core import match as tmatch
 from repro_torch.core import pipeline as tpipe
 from repro_torch.core import quant as tquant
 
+from _torch_threads import _one_thread  # noqa: F401
+
 CPU = "cpu"
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 GOLDEN_RAW = sorted(

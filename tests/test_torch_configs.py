@@ -20,6 +20,8 @@ from repro_torch.configs import base as tbase
 from repro_torch.models import common as tcommon, model as tmodel
 from repro_torch.sharding import rules as trules
 
+from _torch_threads import _one_thread  # noqa: F401
+
 ARCHS = sorted(jconfigs.ARCHS)
 
 

@@ -12,6 +12,8 @@ from repro.data import datasets as jds
 from repro_torch import core as tcore
 from repro_torch.data import datasets as tds
 
+from _torch_threads import _one_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("name", sorted(jds.DATASETS))
 def test_dataset_bytes_equal_reference(name):

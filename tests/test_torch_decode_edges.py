@@ -37,6 +37,8 @@ from repro_torch.data import decode_edges
 from repro_torch.kernels import lz_decode, lz_decode_mono, lz_entropy
 from repro_torch.kernels.lz_entropy import MAX_CODE_LEN, N_SYMBOLS
 
+from _torch_threads import _one_thread  # noqa: F401
+
 _GAP_SRC = (pathlib.Path(__file__).parents[1] / "src/repro_torch/csrc/lz_entropy.cu").read_text()
 # Prefix bits of the CUDA gap decoder's table, and the stream bytes its
 # block stages a round (kStageWords: 64 sub-blocks of the stored escape

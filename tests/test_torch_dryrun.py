@@ -49,6 +49,8 @@ from repro_torch.launch import dryrun, mesh as mesh_lib, roofline
 from repro_torch.models import model
 from repro_torch.optim import grad_compress
 
+from _torch_threads import _one_thread  # noqa: F401
+
 B, T = 4, 256
 REF_KEYS = {"arch", "shape", "mesh", "chips", "compressed_grads", "compile_s", "memory",
             "flops_per_device", "bytes_per_device", "collectives", "roofline", "hlo_bytes",

@@ -21,6 +21,8 @@ from repro_torch import core as tcore
 from repro_torch.core import entropy as tent
 from repro_torch.core import format as tfmt
 
+from _torch_threads import _one_thread  # noqa: F401
+
 CPU = "cpu"
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 SUB = 1 << tfmt.DEFAULT_SUB_LOG2

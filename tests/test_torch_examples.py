@@ -46,6 +46,7 @@ from repro_torch.launch import steps, train
 from repro_torch.models import convert
 
 from _torch_model_ref import to_port_config
+from _torch_threads import _one_thread  # noqa: F401
 
 CPU = "cpu"
 

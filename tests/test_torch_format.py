@@ -17,6 +17,8 @@ import torch
 from repro.core import format as jfmt
 from repro_torch.core import format as tfmt
 
+from _torch_threads import _one_thread  # noqa: F401
+
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 BLOBS = sorted(
     [p.relative_to(GOLDEN).as_posix() for p in GOLDEN.glob("*.gplz")]

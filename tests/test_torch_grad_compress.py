@@ -21,6 +21,8 @@ from repro_torch.core import format as tfmt, lossy, pipeline
 from repro_torch.core.pipeline import LZSSConfig as TConfig
 from repro_torch.optim import grad_compress as tgc
 
+from _torch_threads import _one_thread  # noqa: F401
+
 GEOM = dict(symbol_size=2, window=32, chunk_symbols=512)
 EB = 1e-3
 

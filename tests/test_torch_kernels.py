@@ -37,6 +37,8 @@ from repro.kernels import ref as jref
 from repro_torch.core import autotune, deflate as tdeflate, entropy as tent, pipeline as tpipe
 from repro_torch.kernels import _build, ops
 
+from _torch_threads import _one_thread  # noqa: F401
+
 GEOMETRIES = [(1, 32, 64), (2, 128, 128), (4, 255, 64), (2, 64, 256)]
 
 

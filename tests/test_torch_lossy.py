@@ -24,6 +24,8 @@ from repro_torch.core import bitshuffle as tbs
 from repro_torch.core import format as tfmt
 from repro_torch.core import lossy as tlossy
 
+from _torch_threads import _one_thread  # noqa: F401
+
 CPU = "cpu"
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 

@@ -16,6 +16,8 @@ from repro.sharding import rules as jrules
 from repro_torch.models import attention as tattn, common as tcommon, mlp as tmlp, ssm as tssm
 from repro_torch.sharding import rules as trules
 
+from _torch_threads import _one_thread  # noqa: F401
+
 TOL = 1e-5
 
 

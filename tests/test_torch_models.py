@@ -23,6 +23,8 @@ from repro import configs as jconfigs
 from repro.models import model as jmodel, transformer as jtf
 from repro_torch.models import convert, transformer as ttf
 
+from _torch_threads import _one_thread  # noqa: F401
+
 ARCHS = sorted(jconfigs.ARCHS)
 PAGED = [n for n in ARCHS if jconfigs.get_config(n).mixer in ("attention", "hybrid")]
 T = 24          # tokens of the forward, loss and decode runs

@@ -36,6 +36,8 @@ from repro_torch.core import format as tfmt
 from repro_torch.core import pipeline as tpipe
 from repro_torch.kernels import lz_decode_mono, lz_fused, lz_match, ops
 
+from _torch_threads import _one_thread  # noqa: F401
+
 CPU = "cpu"
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 GOLDEN_RAW = sorted(

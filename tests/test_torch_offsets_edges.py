@@ -42,6 +42,8 @@ from repro.kernels import lz_scatter as jlz_scatter
 from repro_torch.data import offsets_edges as edges
 from repro_torch.kernels import lz_scatter, ops
 
+from _torch_threads import _one_thread  # noqa: F401
+
 _SOURCE = (pathlib.Path(__file__).parents[1] / "src/repro_torch/csrc/lz_scatter.cu").read_text()
 
 

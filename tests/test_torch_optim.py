@@ -28,6 +28,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.models import convert
 
 from _torch_model_ref import pair
+from _torch_threads import _one_thread  # noqa: F401
 
 TRAIN = dict(learning_rate=1e-2, warmup_steps=2, total_steps=8, weight_decay=0.1)
 

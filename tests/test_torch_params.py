@@ -17,6 +17,8 @@ from repro_torch import core as tcore
 from repro_torch.core import params as tparams
 from repro_torch.data import pipeline as tdata
 
+from _torch_threads import _one_thread  # noqa: F401
+
 CPU = "cpu"
 C = 256  # chunk width of the selector tests: small, so the reference is quick
 

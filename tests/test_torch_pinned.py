@@ -22,6 +22,8 @@ import torch
 from repro_torch.core import format as fmt, lzss, pipeline
 from repro_torch.runtime import trace
 
+from _torch_threads import _one_thread  # noqa: F401
+
 N = 1 << 14  # bytes of a field
 
 CONFIGS = {
@@ -63,8 +65,7 @@ def _pipeline_containers(cfg, fields):
     raws = [torch.from_numpy(np.ascontiguousarray(f).view(np.uint8).reshape(-1)) for f in fields]
     nc = lzss._n_chunks(max(r.numel() for r in raws), cfg)
     symbols = torch.stack([lzss._pack_padded(r, nc, cfg) for r in raws])
-    buf, totals = pipeline.compress_many_chunks(
-        symbols, pipeline.resolve_chunk_geometry(cfg), [r.numel() for r in raws])
+    buf, totals = pipeline.compress_many_chunks(symbols, cfg, [r.numel() for r in raws])
     return buf.numpy(), [int(t) for t in totals]
 
 

@@ -23,6 +23,8 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import roofline, steps
 from repro_torch.models import model
 
+from _torch_threads import _one_thread  # noqa: F401
+
 HLO = """
 ENTRY main {
   %p = bf16[32,1024]{1,0} parameter(0)

@@ -43,6 +43,8 @@ from repro_torch.core import format as fmt
 from repro_torch.data import scatter_edges as edges
 from repro_torch.kernels import lz_entropy, lz_scatter
 
+from _torch_threads import _one_thread  # noqa: F401
+
 _CSRC = pathlib.Path(__file__).parents[1] / "src/repro_torch/csrc"
 _SCATTER = (_CSRC / "lz_scatter.cu").read_text()
 _ENTROPY = (_CSRC / "lz_entropy.cu").read_text()

@@ -29,6 +29,7 @@ from repro_torch.models import convert, model as tmodel
 from repro_torch.serving import engine as tengine, kvcache as tkv, paging as tpaging
 
 from _torch_model_ref import pair
+from _torch_threads import _one_thread  # noqa: F401
 
 TIGHT = dict(kv_offload=True, block_tokens=8, budget_blocks=8)
 PREFETCH = {"off": dict(kv_prefetch=False), "on": {}, "async": dict(async_prefetch=True)}

@@ -22,6 +22,8 @@ from repro_torch import sharding as tsharding
 from repro_torch.core import pipeline as tpipe
 from repro_torch.sharding import batch as tbatch
 
+from _torch_threads import _one_thread  # noqa: F401
+
 CPU = "cpu"
 MESHES = {"none": None, "1": (CPU,), "2": (CPU,) * 2, "3": (CPU,) * 3}
 CFG = dict(symbol_size=2, window=32, chunk_symbols=64)

@@ -24,6 +24,8 @@ import torch
 from repro_torch.core import format as fmt, lzss, pipeline
 from repro_torch.runtime import trace
 
+from _torch_threads import _one_thread  # noqa: F401
+
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 N = 1 << 14  # bytes of a field
 

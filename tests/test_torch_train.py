@@ -42,19 +42,10 @@ from repro_torch.runtime import elastic
 from repro_torch.sharding import rules
 
 from _torch_model_ref import pair, rel_err
+from _torch_threads import _one_thread  # noqa: F401
 
 TRAIN = dict(total_steps=10, warmup_steps=1, learning_rate=3e-3)
 SEQ, BATCH = 64, 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for these small tensors: the suite runs several
-    workers on the host's cores, and idle threads spinning slow them all."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _batch(step, cfg, seq=SEQ, batch=BATCH):

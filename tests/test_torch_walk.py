@@ -25,6 +25,8 @@ from repro_torch.core.encode import min_match_length
 from repro_torch.data import walk_edges
 from repro_torch.kernels import lz_match
 
+from _torch_threads import _one_thread  # noqa: F401
+
 # (S, W, C): C=520 is two 256-position tiles and a partial 32-position word;
 # C=40 and C=8 are chunks of one word or less; W=1 is the shortest window
 GEOMETRIES = [(1, 1, 520), (2, 37, 520), (4, 255, 520), (2, 255, 40), (1, 128, 8)]
