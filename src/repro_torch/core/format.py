@@ -49,7 +49,8 @@ the same prefix sums still hold after the bitstreams are gap-decoded.
 
 This module is the PyTorch package's own copy of the reference reader
 (``repro/core/format.py``): host-side parsing and validation are numpy, and
-``write_header_and_tables`` fills a uint8 tensor on any device.  The bytes
+``write_headers_and_tables`` fills the headers and tables of a batch of
+containers in a uint8 tensor on any device.  The bytes
 are identical to the reference's for every container below 2**31 bytes,
 the bound the port's int32 section offsets impose.
 """
@@ -278,48 +279,118 @@ def lossy_max_compressed_bytes(n_bytes: int, chunk_symbols: int) -> int:
     )
 
 
+_HEADER = np.dtype([
+    ("magic", "u1", 4), ("version", "u1"), ("symbol_size", "u1"), ("window", "<u2"),
+    ("chunk_symbols", "<u4"), ("n_chunks", "<u4"), ("orig_bytes", "<u8"),
+    ("payload_bytes", "<u8"), ("flag_bytes", "<u8"), ("method", "u1"), ("sub_log2", "u1"),
+    ("reserved", "u1", 6),
+])
+assert _HEADER.itemsize == HEADER_BYTES
+
+
+def header_rows(*, symbol_size, window, chunk_symbols, n_chunks, orig_bytes,
+                payload_total, flag_total, method=METHOD_RAW, sub_log2=0) -> np.ndarray:
+    """The headers of B containers of one geometry, a (B, 48) uint8 array.
+
+    ``orig_bytes``, ``payload_total`` and ``flag_total`` hold B host ints
+    each; the other fields are one host int for every row.
+    """
+    orig = np.asarray(orig_bytes, np.uint64).reshape(-1)
+    h = np.zeros(orig.size, _HEADER)
+    h["magic"] = MAGIC
+    h["version"] = VERSION
+    h["symbol_size"] = symbol_size
+    h["window"] = window
+    h["chunk_symbols"] = chunk_symbols
+    h["n_chunks"] = n_chunks
+    h["orig_bytes"] = orig
+    h["payload_bytes"] = np.asarray(payload_total, np.uint64).reshape(-1)
+    h["flag_bytes"] = np.asarray(flag_total, np.uint64).reshape(-1)
+    h["method"] = method
+    h["sub_log2"] = sub_log2
+    return h.view(np.uint8).reshape(-1, HEADER_BYTES)
+
+
 def _header_bytes(*, symbol_size, window, chunk_symbols, n_chunks,
                   orig_bytes, payload_total, flag_total, method, sub_log2):
     """The 48 header bytes for host-int field values."""
-    return (
-        bytes(MAGIC)
-        + bytes([VERSION, symbol_size])
-        + window.to_bytes(2, "little")
-        + chunk_symbols.to_bytes(4, "little")
-        + n_chunks.to_bytes(4, "little")
-        + orig_bytes.to_bytes(8, "little")
-        + payload_total.to_bytes(8, "little")
-        + flag_total.to_bytes(8, "little")
-        + bytes([method, sub_log2])
-        + bytes(6)
+    return header_rows(
+        symbol_size=symbol_size, window=window, chunk_symbols=chunk_symbols,
+        n_chunks=n_chunks, orig_bytes=[orig_bytes], payload_total=[payload_total],
+        flag_total=[flag_total], method=method, sub_log2=sub_log2,
+    ).tobytes()
+
+
+def pinned_block(shape) -> torch.Tensor:
+    """A page-locked uint8 block from torch's caching host allocator.
+
+    The block goes back to the allocator's cache when the tensor, and any
+    array of its ``.numpy()``, is dropped, and not before the copies the
+    card was given from it have run; a later request of the same rounded
+    size takes it again with its pages already touched, so a copy into or
+    out of it pays no page faults and no staging."""
+    before = torch.cuda.host_memory_stats()["num_host_alloc"] if trace.enabled() else None
+    t = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    trace.count("pinned_bytes", t.numel())
+    if before is not None:
+        trace.count("pinned_allocs", torch.cuda.host_memory_stats()["num_host_alloc"] - before)
+    return t
+
+
+def write_headers_and_tables(out, *, symbol_size, window, chunk_symbols, n_chunks,
+                             orig_bytes, payload_total, flag_total, n_tokens,
+                             payload_sizes, method=METHOD_RAW, sub_log2=0):
+    """Fill the headers and sections A/B of the B rows of the (B, L) uint8
+    tensor ``out`` in place, each with one copy for the whole batch.
+
+    ``orig_bytes``, ``payload_total`` and ``flag_total`` are B host ints
+    each, the other scalar fields one host int for all rows;
+    ``n_tokens`` / ``payload_sizes`` are (B, n_chunks) integer tensors on
+    ``out``'s device, written as u32 little-endian.  On a CUDA device the
+    headers leave from a page-locked block and the host does not wait for
+    the copy.  Returns ``out``.
+    """
+    b = out.shape[0]
+    heads = header_rows(
+        symbol_size=symbol_size, window=window, chunk_symbols=chunk_symbols,
+        n_chunks=n_chunks, orig_bytes=orig_bytes, payload_total=payload_total,
+        flag_total=flag_total, method=method, sub_log2=sub_log2,
     )
+    trace.count("bytes_h2d", heads.nbytes)
+    if out.device.type == "cuda":
+        staged = pinned_block(heads.shape)
+        staged.numpy()[...] = heads
+        out[:, :HEADER_BYTES].copy_(staged, non_blocking=True)
+    else:
+        out[:, :HEADER_BYTES] = torch.from_numpy(heads)
+    sec_a = HEADER_BYTES
+    sec_b = sec_a + 4 * n_chunks
+    for base, table in ((sec_a, n_tokens), (sec_b, payload_sizes)):
+        words = table.reshape(b, n_chunks)
+        if words.dtype != torch.int32 or words.stride(-1) != 1:  # unit stride for the byte view
+            words = torch.empty(b, n_chunks, dtype=torch.int32, device=out.device).copy_(words)
+        out[:, base : base + 4 * n_chunks] = words.view(torch.uint8)
+    return out
 
 
 def write_header_and_tables(out, *, symbol_size, window, chunk_symbols,
                             n_chunks, orig_bytes, payload_total, flag_total,
                             n_tokens, payload_sizes,
                             method=METHOD_RAW, sub_log2=0):
-    """Fill header + sections A/B of the flat uint8 tensor ``out`` in place.
+    """Fill header + sections A/B of the flat uint8 tensor ``out`` in place:
+    ``write_headers_and_tables`` for one row.
 
     The scalar fields are host ints; ``n_tokens`` / ``payload_sizes`` are
     (n_chunks,) integer tensors on ``out``'s device, written as u32
     little-endian.  Returns ``out``.
     """
-    head = _header_bytes(
-        symbol_size=symbol_size, window=window, chunk_symbols=chunk_symbols,
-        n_chunks=n_chunks, orig_bytes=int(orig_bytes),
-        payload_total=int(payload_total), flag_total=int(flag_total),
-        method=int(method), sub_log2=int(sub_log2),
+    write_headers_and_tables(
+        out[None], symbol_size=symbol_size, window=window, chunk_symbols=chunk_symbols,
+        n_chunks=n_chunks, orig_bytes=[int(orig_bytes)], payload_total=[int(payload_total)],
+        flag_total=[int(flag_total)], n_tokens=n_tokens.reshape(1, n_chunks),
+        payload_sizes=payload_sizes.reshape(1, n_chunks), method=int(method),
+        sub_log2=int(sub_log2),
     )
-    out[:HEADER_BYTES] = torch.frombuffer(bytearray(head), dtype=torch.uint8)
-    trace.count("bytes_h2d", HEADER_BYTES)  # a pageable copy: the host waits
-    trace.count("host_syncs", 1)
-    sec_a = HEADER_BYTES
-    sec_b = sec_a + 4 * n_chunks
-    for base, table in ((sec_a, n_tokens), (sec_b, payload_sizes)):
-        words = torch.empty(n_chunks, dtype=torch.int32, device=out.device)
-        words.copy_(table.reshape(n_chunks))  # unit stride for the byte view
-        out[base : base + 4 * n_chunks] = words.view(torch.uint8)
     return out
 
 

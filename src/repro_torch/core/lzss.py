@@ -100,6 +100,14 @@ class BatchedCompressResult:
         return int(self.orig_bytes.sum()) / max(1, int(self.total_bytes.sum()))
 
 
+def _host_bytes(data) -> np.ndarray:
+    """Any host array or bytes -> its flat uint8 view (a copy only where the
+    array is not contiguous)."""
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        data = np.frombuffer(data, np.uint8)
+    return np.ascontiguousarray(data).view(np.uint8).reshape(-1)
+
+
 def _as_bytes(data, device: torch.device) -> torch.Tensor:
     """Any array, tensor or bytes -> flat uint8 tensor on ``device``.
 
@@ -109,9 +117,7 @@ def _as_bytes(data, device: torch.device) -> torch.Tensor:
         t = data.detach().contiguous().reshape(-1).view(torch.uint8)
         host = t.device.type == "cpu" and device.type != "cpu"
     else:
-        if isinstance(data, (bytes, bytearray, memoryview)):
-            data = np.frombuffer(data, np.uint8)
-        arr = np.ascontiguousarray(data).view(np.uint8).reshape(-1)
+        arr = _host_bytes(data)
         if not arr.flags.writeable:
             arr = arr.copy()
             trace.count("bytes_host_copy", arr.nbytes)
@@ -123,31 +129,56 @@ def _as_bytes(data, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _pinned(shape) -> torch.Tensor:
-    """A page-locked uint8 block from torch's caching host allocator.
+def _gather(arrays, device: torch.device):
+    """A batch of buffers -> (their bytes end to end, one flat uint8 tensor
+    on ``device``; the list of their B byte sizes).
 
-    The block goes back to the allocator's cache when the tensor, and any
-    array of its ``.numpy()``, is dropped; a later request of the same
-    rounded size takes it again with its pages already touched, so a copy
-    into or out of it pays no page faults and no staging."""
-    before = torch.cuda.host_memory_stats()["num_host_alloc"] if trace.enabled() else None
-    t = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-    trace.count("pinned_bytes", t.numel())
-    if before is not None:
-        trace.count("pinned_allocs", torch.cuda.host_memory_stats()["num_host_alloc"] - before)
-    return t
+    A (B, n) array or tensor is B rows of one buffer.  Tensors of one dtype
+    on one device are joined by one ``torch.cat``, host arrays and bytes by
+    one ``np.concatenate`` and moved in one copy; a list that mixes the two,
+    dtypes or devices takes ``_as_bytes`` a buffer."""
+    if isinstance(arrays, (np.ndarray, torch.Tensor)) and arrays.ndim == 2:
+        b = arrays.shape[0]
+        if b == 0:
+            raise ValueError("compress_many needs at least one buffer")
+        flat = _as_bytes(arrays, device)
+        return flat, [flat.numel() // b] * b
+    arrays = list(arrays)
+    if not arrays:
+        raise ValueError("compress_many needs at least one buffer")
+    head = arrays[0]
+    if isinstance(head, torch.Tensor):
+        dtype, index = head.dtype, head.get_device()
+        if all(isinstance(a, torch.Tensor) and a.dtype == dtype and a.get_device() == index
+               for a in arrays):
+            sizes = [a.nbytes for a in arrays]  # numel() * element_size()
+            if len(arrays) > 1:
+                with torch.no_grad():
+                    head = torch.cat([a if a.dim() == 1 else a.reshape(-1) for a in arrays])
+            return _as_bytes(head, device), sizes
+    if not any(isinstance(a, torch.Tensor) for a in arrays):
+        parts = [_host_bytes(a) for a in arrays]
+        if len(parts) > 1:
+            joined = np.concatenate(parts)
+            trace.count("bytes_host_copy", joined.nbytes)
+        else:
+            joined = parts[0]
+        return _as_bytes(joined, device), [p.size for p in parts]
+    raws = [_as_bytes(a, device) for a in arrays]
+    return torch.cat(raws), [r.numel() for r in raws]
 
 
 def _to_host(t: torch.Tensor, pinned: bool = False) -> np.ndarray:
     """A device result -> numpy: one blocking device-to-host copy, into a
-    fresh pageable buffer or, with ``pinned``, into a block of ``_pinned``
-    (``t`` is then uint8).  The returned array then holds its block, which
-    goes back to torch's host cache when the array is dropped."""
+    fresh pageable buffer or, with ``pinned``, into a block of
+    ``format.pinned_block`` (``t`` is then uint8).  The returned array then
+    holds its block, which goes back to torch's host cache when the array is
+    dropped."""
     trace.count("bytes_d2h", t.numel() * t.element_size())
     trace.count("host_syncs", 1)
     if not pinned:
         return t.cpu().numpy()
-    host = _pinned(t.shape)
+    host = fmt.pinned_block(t.shape)
     host.copy_(t)
     return host.numpy()
 
@@ -159,12 +190,59 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _pack_padded(raw: torch.Tensor, nc: int, cfg: LZSSConfig) -> torch.Tensor:
-    """(n,) uint8 bytes -> (nc, C) int32 symbols, zero-padded."""
+# a symbol of S bytes as one element, which a copy to int32 widens with its
+# bits kept (zero-extended below S = 4)
+_WIDE = {1: torch.uint8, 2: torch.uint16, 4: torch.int32}
+
+
+def _fill_rows(rows: torch.Tensor, src: torch.Tensor, lengths) -> None:
+    """Copy the B buffers that lie end to end in the flat ``src``,
+    ``lengths[i]`` elements each, into the B rows of ``rows`` (converted to
+    its dtype), and zero the rest of every row.
+
+    A batch whose buffers but the last fill their rows is one copy; one
+    whose buffers but the last share a length, the last no longer, is a
+    copy of those rows and one of the last.  Any other is copied a buffer at
+    a time, counted under ``rows_packed_alone``."""
+    b, width = rows.shape
+    head = lengths[0]
+    if all(n == width for n in lengths[:-1]):
+        flat = rows.view(-1)
+        flat[: src.numel()].copy_(src)
+        flat[src.numel() :].zero_()
+    elif all(n == head for n in lengths[:-1]) and lengths[-1] <= head:
+        even = b if lengths[-1] == head else b - 1
+        rows[:even, :head].copy_(src[: even * head].view(even, head))
+        rows[:, head:].zero_()
+        if even < b:
+            rows[-1, : lengths[-1]].copy_(src[even * head :])
+            rows[-1, lengths[-1] : head].zero_()
+    else:
+        trace.count("rows_packed_alone", b)
+        rows.zero_()
+        start = 0
+        for i, n in enumerate(lengths):
+            rows[i, :n].copy_(src[start : start + n])
+            start += n
+
+
+def _pack(flat: torch.Tensor, sizes, cfg: LZSSConfig) -> torch.Tensor:
+    """B buffers' bytes end to end in ``flat`` -> (B, nc, C) int32 symbols,
+    every buffer zero-padded to the batch's common chunk count.
+
+    Where every buffer holds whole symbols the copy into the rows widens
+    each symbol itself; otherwise the bytes are padded first and then packed
+    as ``pack_symbols`` packs them."""
     s, c = cfg.symbol_size, cfg.chunk_symbols
-    padded = torch.zeros(nc * c * s, dtype=torch.uint8, device=raw.device)
-    padded[: raw.numel()] = raw
-    return pack_symbols(padded, s).reshape(nc, c)
+    b = len(sizes)
+    nc = _n_chunks(max(sizes), cfg)
+    if flat.data_ptr() % s == 0 and all(n % s == 0 for n in sizes):
+        rows = torch.empty(b, nc * c, dtype=torch.int32, device=flat.device)
+        _fill_rows(rows, flat.view(_WIDE[s]), [n // s for n in sizes])
+        return rows.view(b, nc, c)
+    rows = torch.empty(b, nc * c * s, dtype=torch.uint8, device=flat.device)
+    _fill_rows(rows, flat, sizes)
+    return pack_symbols(rows.view(-1), s).view(b, nc, c)
 
 
 def _n_chunks(n_bytes: int, cfg: LZSSConfig) -> int:
@@ -187,9 +265,10 @@ def compress(data, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> Compress
             raw = _as_bytes(data, dev)
         n = raw.numel()
         with trace.span("lzss.pack"):
-            symbols = _pack_padded(raw, _n_chunks(n, config), config)
+            symbols = _pack(raw, [n], config)
         with trace.span("lzss.dispatch"):
-            buf, total = compress_chunks(symbols, config, n)
+            blobs, totals = compress_many_chunks(symbols, config, [n])
+            buf, total = blobs[0], totals[0]
         root.set(bytes=n, method=container_method(config.backend))
         with trace.span("lzss.d2h", dev):
             host = _to_host(buf[:total], dev.type == "cuda")
@@ -201,7 +280,8 @@ def _validated(blob, pinned: bool = False):
 
     The container is first copied once in host memory, writable for
     ``torch.from_numpy``: into a fresh array, or with ``pinned`` into a
-    block of ``_pinned``, from which its copy to the card needs no staging."""
+    block of ``format.pinned_block``, from which its copy to the card needs
+    no staging."""
     if isinstance(blob, torch.Tensor):
         blob = blob.detach()
         blob = _to_host(blob) if blob.device.type != "cpu" else blob.numpy()
@@ -209,7 +289,7 @@ def _validated(blob, pinned: bool = False):
         blob = np.frombuffer(blob, np.uint8)
     if pinned:
         src = np.asarray(blob, np.uint8)
-        blob = _pinned(src.shape).numpy()
+        blob = fmt.pinned_block(src.shape).numpy()
         np.copyto(blob, src)
     else:
         blob = np.array(blob, np.uint8)  # a writable copy for torch.from_numpy
@@ -308,7 +388,9 @@ def compress_many(arrays, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> B
 
     ``arrays`` is a list of array-likes or tensors (ragged sizes allowed —
     every buffer is padded to the batch's common chunk count, headers record
-    true sizes) or a (B, n) array treated as B equal-size buffers.
+    true sizes) or a (B, n) array treated as B equal-size buffers.  The
+    batch is gathered, packed and given its headers once, not a buffer at a
+    time (``_gather``, ``_pack``).
 
     On a CUDA device the (B, cap) buffer comes back into page-locked host
     memory, as ``compress``'s container does: ``data``, and every row taken
@@ -316,17 +398,11 @@ def compress_many(arrays, config: LZSSConfig = DEFAULT_CONFIG, device=None) -> B
     ``np.array(batch.data)`` gives a pageable copy.
     """
     dev = resolve_device(device)
-    if isinstance(arrays, (np.ndarray, torch.Tensor)) and arrays.ndim == 2:
-        arrays = [arrays[i] for i in range(arrays.shape[0])]
     with trace.span("lzss.compress_many") as root:
         with trace.span("lzss.h2d", dev):
-            raws = [_as_bytes(a, dev) for a in arrays]
-        if not raws:
-            raise ValueError("compress_many needs at least one buffer")
-        sizes = [r.numel() for r in raws]
-        nc = _n_chunks(max(sizes), config)
+            flat, sizes = _gather(arrays, dev)
         with trace.span("lzss.pack"):
-            symbols = torch.stack([_pack_padded(r, nc, config) for r in raws])
+            symbols = _pack(flat, sizes, config)
         with trace.span("lzss.dispatch"):
             data, totals = compress_many_chunks(symbols, config, sizes)
         root.set(bytes=sum(sizes), method=container_method(config.backend), buffers=len(sizes))

@@ -66,6 +66,7 @@ import dataclasses
 import math
 from typing import Dict, Protocol
 
+import numpy as np
 import torch
 
 from repro_torch.core import autotune, decode as decode_mod
@@ -393,12 +394,12 @@ class FusedBackend:
         return dict(out, use_match=out["emitted"] & (out["lengths"] >= cfg.min_match))
 
 
-def _read_totals(totals: torch.Tensor) -> list:
-    """The one device-to-host read of the (B, 2) section totals."""
+def _read_totals(totals: torch.Tensor) -> np.ndarray:
+    """The one device-to-host read of the (B, 2) section totals, as int64."""
     with trace.span("pipeline.totals"):
         trace.count("bytes_d2h", totals.numel() * totals.element_size())
         trace.count("host_syncs", 1)
-        return totals.cpu().tolist()
+        return totals.cpu().numpy().astype(np.int64)
 
 
 class FusedDeflateBackend(FusedBackend):
@@ -422,8 +423,8 @@ class FusedDeflateBackend(FusedBackend):
         totals = _read_totals(totals)
         return _finalize_container(
             blobs, cfg, orig_bytes, nc=nc, c=c, n_tokens=k1["n_tokens"],
-            payload_sizes=k1["payload_sizes"],
-            flag_totals=[t[0] for t in totals], pay_totals=[t[1] for t in totals],
+            payload_sizes=k1["payload_sizes"], flag_totals=totals[:, 0],
+            pay_totals=totals[:, 1],
         )
 
 
@@ -448,7 +449,7 @@ class FusedMonoBackend(FusedBackend):
         totals = _read_totals(totals)
         return _finalize_container(
             blobs, cfg, orig_bytes, nc=nc, c=c, n_tokens=n_tokens, payload_sizes=payload_sizes,
-            flag_totals=[t[0] for t in totals], pay_totals=[t[1] for t in totals],
+            flag_totals=totals[:, 0], pay_totals=totals[:, 1],
         )
 
 
@@ -800,20 +801,19 @@ def unpack_symbols(symbols: torch.Tensor, symbol_size: int) -> torch.Tensor:
 
 def _finalize_container(blobs, cfg, orig_bytes, *, nc, c, n_tokens, payload_sizes,
                         flag_totals, pay_totals):
-    """Write header + A/B tables into section-filled (B, cap) uint8 blobs.
+    """Write the headers and A/B tables into section-filled (B, cap) uint8
+    blobs, once for the batch; the section totals are B host ints each.
 
     Returns ``(blobs, totals)`` with ``totals`` a list of B host ints.
     """
-    totals = []
-    for r in range(blobs.shape[0]):
-        fmt.write_header_and_tables(
-            blobs[r], symbol_size=cfg.symbol_size, window=cfg.window,
-            chunk_symbols=c, n_chunks=nc, orig_bytes=orig_bytes[r],
-            payload_total=pay_totals[r], flag_total=flag_totals[r],
-            n_tokens=n_tokens[r], payload_sizes=payload_sizes[r],
-        )
-        totals.append(fmt.HEADER_BYTES + 8 * nc + flag_totals[r] + pay_totals[r])
-    return blobs, totals
+    flag_totals = np.asarray(flag_totals, np.int64)
+    pay_totals = np.asarray(pay_totals, np.int64)
+    fmt.write_headers_and_tables(
+        blobs, symbol_size=cfg.symbol_size, window=cfg.window, chunk_symbols=c,
+        n_chunks=nc, orig_bytes=orig_bytes, payload_total=pay_totals,
+        flag_total=flag_totals, n_tokens=n_tokens, payload_sizes=payload_sizes,
+    )
+    return blobs, (fmt.HEADER_BYTES + 8 * nc + flag_totals + pay_totals).tolist()
 
 
 def emit_torch(symbols, k1, cfg, orig_bytes):

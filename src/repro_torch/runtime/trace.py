@@ -48,6 +48,9 @@ same path counts on the card:
   ``pinned_allocs``    blocks that allocator had to allocate for them (the
                        rise of ``torch.cuda.host_memory_stats()``'s
                        ``num_host_alloc``; 0 where its cache held one)
+  ``rows_packed_alone`` buffers of a batch that ``compress_many``'s pack
+                       copied one at a time: a ragged batch, whose buffers
+                       neither fill their rows nor share one length
 
 With tracing off, ``span`` returns one shared no-op context and ``count``
 returns at once: the cost is a flag check a site.
@@ -97,7 +100,7 @@ SPANS = (
     "entropy.gather",
 )
 COUNTERS = ("bytes_h2d", "bytes_d2h", "bytes_host_copy", "host_syncs", "pinned_bytes",
-            "pinned_allocs", "dropped")
+            "pinned_allocs", "rows_packed_alone", "dropped")
 # timed on the stream as well as on the host clock: the container stages
 # and the host API's copies
 DEVICE_STAGES = frozenset(

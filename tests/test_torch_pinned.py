@@ -15,10 +15,13 @@ The ``gpu`` cases run on the card:
 This file imports no JAX.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
+import _torch_pack_oracle as oracle
 from repro_torch.core import format as fmt, lzss, pipeline
 from repro_torch.runtime import trace
 
@@ -64,7 +67,11 @@ def _pipeline_containers(cfg, fields):
     pipeline on the CPU, before the host API copies them anywhere."""
     raws = [torch.from_numpy(np.ascontiguousarray(f).view(np.uint8).reshape(-1)) for f in fields]
     nc = lzss._n_chunks(max(r.numel() for r in raws), cfg)
-    symbols = torch.stack([lzss._pack_padded(r, nc, cfg) for r in raws])
+    s, c = cfg.symbol_size, cfg.chunk_symbols
+    padded = torch.zeros(len(raws), nc * c * s, dtype=torch.uint8)
+    for row, r in zip(padded, raws):
+        row[: r.numel()] = r
+    symbols = pipeline.pack_symbols(padded.reshape(-1), s).reshape(len(raws), nc, c)
     buf, totals = pipeline.compress_many_chunks(symbols, cfg, [r.numel() for r in raws])
     return buf.numpy(), [int(t) for t in totals]
 
@@ -402,6 +409,12 @@ def test_card_write_result_is_page_locked_and_equals_the_cpu_path(cuda, entry, m
     assert out.shape == cpu_out.shape and np.array_equal(out, cpu_out)
 
 
+# the container headers one write of case ``m`` stages, each from a
+# page-locked block: a raw container's one; a lossy container's inner
+# container's and its own
+HEADERS = {0: 1, 1: 1, 2: 2, "odd": 1}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("entry", ["compress", "compress_many"])
 @pytest.mark.parametrize("m", [0, 1, 2, "odd"])
@@ -418,8 +431,9 @@ def test_card_write_steady_state_allocates_no_block(cuda, entry, m):
     finally:
         trace.disable()
         trace.reset()
+    buffers = 1 if entry == "compress" else len(_batch(m)[1])
     assert c["pinned_allocs"] == 0
-    assert c["pinned_bytes"] == sum(sizes)
+    assert c["pinned_bytes"] == sum(sizes) + 10 * buffers * HEADERS[m] * fmt.HEADER_BYTES
 
 
 @pytest.mark.gpu
@@ -438,3 +452,49 @@ def test_card_kept_compress_result_survives_later_calls(cuda, m):
             lzss.compress(f, c)
     assert np.array_equal(kept.data, before)
     _check_back(lzss.decompress(kept.data), field, m)
+
+
+def _synchronising_calls(fn) -> int:
+    """Warnings of ``torch.cuda.set_sync_debug_mode("warn")`` raised from
+    the program's own lines while ``fn`` runs."""
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(1 for w in ws if "synchroniz" in str(w.message).lower()
+               and "repro_torch" in w.filename)
+
+
+@pytest.mark.gpu
+def test_card_chunked_field_is_one_batch_of_the_per_buffer_loops_bytes(cuda):
+    """A 50 MB field of u16 codes on the card cut into its 763 64 KiB
+    chunks, the last one short, as nvCOMP's batched API takes them: the
+    batch's bytes are those of the per-buffer loop on the card, and its
+    host syncs the card's own count."""
+    n = 50_000_000
+    rng = np.random.default_rng(5)
+    codes = (np.cumsum(rng.integers(-2, 3, n // 2)) % 64 + 32740).astype(np.int16)
+    field = torch.from_numpy(codes).to(cuda)
+    bufs = [field[a // 2 : min(a + 65536, n) // 2] for a in range(0, n, 65536)]
+    assert len(bufs) == 763 and bufs[-1].numel() < bufs[0].numel()
+    cfg = lzss.LZSSConfig(symbol_size=2)
+    lzss.compress_many(bufs, cfg)  # warm: the kernel's build, the host blocks
+    torch.cuda.synchronize()
+    got = {}
+    trace.reset()
+    trace.enable()
+    try:
+        reported = _synchronising_calls(lambda: got.update(batch=lzss.compress_many(bufs, cfg)))
+        c = trace.snapshot()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert c["host_syncs"] == reported == 2  # the totals' read and the batch's D2H
+    assert c["rows_packed_alone"] == 0
+    data, totals, sizes = oracle.compress_many(bufs, cfg, cuda)
+    batch = got["batch"]
+    assert batch.orig_bytes.tolist() == sizes
+    assert batch.total_bytes.tolist() == totals and np.array_equal(batch.data, data)
