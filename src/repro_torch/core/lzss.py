@@ -239,10 +239,12 @@ def _pack(flat: torch.Tensor, sizes, cfg: LZSSConfig) -> torch.Tensor:
     if flat.data_ptr() % s == 0 and all(n % s == 0 for n in sizes):
         rows = torch.empty(b, nc * c, dtype=torch.int32, device=flat.device)
         _fill_rows(rows, flat.view(_WIDE[s]), [n // s for n in sizes])
-        return rows.view(b, nc, c)
-    rows = torch.empty(b, nc * c * s, dtype=torch.uint8, device=flat.device)
-    _fill_rows(rows, flat, sizes)
-    return pack_symbols(rows.view(-1), s).view(b, nc, c)
+    else:
+        padded = torch.empty(b, nc * c * s, dtype=torch.uint8, device=flat.device)
+        _fill_rows(padded, flat, sizes)
+        rows = pack_symbols(padded.view(-1), s)
+    trace.count("symbol_bytes", rows.numel() * rows.element_size())
+    return rows.view(b, nc, c)
 
 
 def _n_chunks(n_bytes: int, cfg: LZSSConfig) -> int:

@@ -51,6 +51,9 @@ same path counts on the card:
   ``rows_packed_alone`` buffers of a batch that ``compress_many``'s pack
                        copied one at a time: a ragged batch, whose buffers
                        neither fill their rows nor share one length
+  ``symbol_bytes``     bytes of the int32 symbol rows the host API's pack
+                       writes for the compressor: 4 a padded symbol, so
+                       4 / S a field byte
 
 With tracing off, ``span`` returns one shared no-op context and ``count``
 returns at once: the cost is a flag check a site.
@@ -100,7 +103,7 @@ SPANS = (
     "entropy.gather",
 )
 COUNTERS = ("bytes_h2d", "bytes_d2h", "bytes_host_copy", "host_syncs", "pinned_bytes",
-            "pinned_allocs", "rows_packed_alone", "dropped")
+            "pinned_allocs", "rows_packed_alone", "symbol_bytes", "dropped")
 # timed on the stream as well as on the host clock: the container stages
 # and the host API's copies
 DEVICE_STAGES = frozenset(
